@@ -3,16 +3,28 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc,
-holds each against its plain PyTorch version on the card at 1080p, decodes
-the fixtures through the port's `BatchVideoDecoder(window=16,
-device="cuda")` and checks them against their golden hashes and the C++
-host decoder, and times the kernels and the 1080p decode.
+Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
+and holds each against its plain PyTorch version on the card at 1080p
+(K1 one picture and 64 streams in one launch, K2, K3), then drives every
+path of the port and checks its output:
 
-Every phase prints one JSON line; any failure raises, so the exit code is
-nonzero and the closing `{"ok": true, ...}` line never prints.  Without a
-CUDA device, or outside a checkout of the repository, it exits nonzero
-before printing any result.  Imports nothing of JAX.
+- `golden`: the fixtures through `BatchVideoDecoder(window=16,
+  device="cuda")` against their golden hashes;
+- `e2e_1080p`: the 1080p fixture against the C++ host decoder, timed;
+- `recon_multi_1080p`: the same with K3 (K2 + two plane launches) in
+  K1's place;
+- `multistream_golden`: four mixed streams in lockstep against solo
+  decodes and the goldens;
+- `multistream_1080p`: 64 streams of the 1080p fixture, window 2, every
+  frame against the C++ host decoder, then timed and profiled;
+- `rgba`: the 1080p fixture with `emit_rgba=True` against numpy.
+
+Each path's kernel launch counts are set to 0 just before it runs and
+read just after.  Every phase prints one JSON line; any failure raises,
+so the exit code is nonzero and the closing `{"ok": true, ...}` line
+never prints.  Without a CUDA device, or outside a checkout of the
+repository, it exits nonzero before printing any result.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +42,10 @@ TESTDATA = os.path.join(REPO, "tests", "testdata")
 GOLDEN_VIDEO = (260, 0xEA6D7FCB1340BA3F)   # test.mpeg1video
 GOLDEN_PS = (278, 0xD00818EDCAFDC702)      # test.mpg (tests/test_torch_batch.py)
 E2E_PASSES = 3
+N_STREAMS = 64        # bench.py secondary_64stream: 64 x 1080p, window 2
+# Pictures kept of the 32-picture 1080p fixture, stream s taking entry
+# s % 4 (None: the whole stream): four lengths, four flush rounds.
+STREAM_CUTS = (None, 25, 17, 9)
 
 
 def emit(obj: dict) -> None:
@@ -118,9 +134,11 @@ def _max_abs_err(got, want) -> int:
 
 
 def phase_kernel_parity(seed: int) -> dict:
-    """K1 and K2 against their plain versions at 1080p on adversarial
-    plans (every MC mode, src_sel 0/1/2, junk MVs of +-3000), byte for
-    byte, then both timed at the main path's shapes."""
+    """K1, K2 and K3 against their plain versions at 1080p on adversarial
+    plans (every MC mode, src_sel 0/1/2, junk MVs of +-3000, forward
+    aliasing backward), byte for byte, K3 against K1, and the
+    stream-batched K1 over 64 pictures against 64 single launches and its
+    plain version; then each timed at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -135,7 +153,7 @@ def phase_kernel_parity(seed: int) -> dict:
     frame = lambda: torch.from_numpy(  # noqa: E731
         rng.integers(0, 256, geom.total_size).astype(np.uint8)).to(dev)
     cur, fwd, bwd = frame(), frame(), frame()
-    errs = {"k1": 0, "k2": 0}
+    errs = {"k1": 0, "k2": 0, "k3": 0}
 
     def check(kernel, got, want, what):
         torch.cuda.synchronize()
@@ -150,6 +168,13 @@ def phase_kernel_parity(seed: int) -> dict:
         new = cuda_kernels.reconstruct_picture(cur, fwd, bwd, *args, geom)
         check("k1", new, plain.reconstruct_picture(cur, fwd, bwd, *args,
                                                    geom), f"trial {trial}")
+        for pallas_idct in (True, False):
+            k3 = cuda_kernels.reconstruct_picture_multi(
+                cur, fwd, bwd, *args, geom, pallas_idct=pallas_idct)
+            check("k3", k3, plain.reconstruct_picture_multi(
+                cur, fwd, bwd, *args, geom),
+                f"trial {trial}, pallas_idct={pallas_idct}")
+            check("k3", k3, new, f"K3 against K1, trial {trial}")
         coeffs, nblocks = args[0].view(-1, 64), args[1].view(-1)
         check("k2", cuda_kernels.idct_batch(coeffs, nblocks),
               plain.idct_batch(coeffs, nblocks), f"trial {trial}")
@@ -161,31 +186,117 @@ def phase_kernel_parity(seed: int) -> dict:
     check("k2", cuda_kernels.idct_batch(c, n), plain.idct_batch(c, n),
           "variant blocks")
 
-    # Timing at the main path's shapes: one 1080p picture.  `*_ms` is
-    # the card's time per call (torch.profiler), `*_wall_ms` the time per
+    # The stream axis: 64 streams, four pool frames each, one random
+    # picture each (indices out of stream order), every third stream a
+    # reference step (forward aliases backward).
+    s_n = N_STREAMS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randint(0, 256, (4 * s_n, geom.total_size), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    plans = [torch.stack(a) for a in zip(*(
+        plan_args(random_plan(geom, rng, 1 + s % 2), dev)
+        for s in range(s_n)))]
+    perm = rng.permutation(s_n)
+    table = torch.tensor(
+        [[4 * s, 4 * s + (2 if s % 3 == 0 else 1), 4 * s + 2, 4 * s + 3,
+          int(perm[s])] for s in range(s_n)], dtype=torch.int32, device=dev)
+    before = pool.clone()
+    cuda_kernels.reconstruct_pictures(pool, table, *plans, geom)
+    want = plain.reconstruct_pictures(before.clone(), table, *plans, geom)
+    check("k1", pool, want, "64 streams against the plain version")
+    for c_, f_, b_, o_, pic in table.tolist():
+        check("k1", pool[o_], cuda_kernels.reconstruct_picture(
+            before[c_], before[f_], before[b_],
+            *(a[pic] for a in plans), geom), f"stream of picture {pic}")
+
+    # Timing at the main path's shapes: one 1080p picture, and one
+    # picture-step of 64 streams (per picture: / 64).  `*_ms` is the
+    # card's time per call (torch.profiler), `*_wall_ms` the time per
     # call of back-to-back calls (CUDA events), which the host's launch
     # cost bounds where it exceeds the card's.
     args = plan_args(random_plan(geom, rng, 2), dev)
     coeffs, nblocks = args[0].view(-1, 64), args[1].view(-1)
     fns = {
         "k1": (lambda: cuda_kernels.reconstruct_picture(
-            cur, fwd, bwd, *args, geom), 200),
+            cur, fwd, bwd, *args, geom), 200, 1),
         "k1_plain": (lambda: plain.reconstruct_picture(
-            cur, fwd, bwd, *args, geom), 20),
-        "k2": (lambda: cuda_kernels.idct_batch(coeffs, nblocks), 200),
-        "k2_plain": (lambda: plain.idct_batch(coeffs, nblocks), 20),
+            cur, fwd, bwd, *args, geom), 20, 1),
+        "k1_streams": (lambda: cuda_kernels.reconstruct_pictures(
+            pool, table, *plans, geom), 20, s_n),
+        "k1_streams_plain": (lambda: plain.reconstruct_pictures(
+            pool, table, *plans, geom), 2, s_n),
+        "k2": (lambda: cuda_kernels.idct_batch(coeffs, nblocks), 200, 1),
+        "k2_plain": (lambda: plain.idct_batch(coeffs, nblocks), 20, 1),
+        "k3": (lambda: cuda_kernels.reconstruct_picture_multi(
+            cur, fwd, bwd, *args, geom), 200, 1),
+        "k3_plain": (lambda: plain.reconstruct_picture_multi(
+            cur, fwd, bwd, *args, geom), 20, 1),
     }
     t = {}
-    for name, (fn, iters) in fns.items():
-        t[f"{name}_ms"], t[f"{name}_top_us"] = device_profile(fn, iters)
-        t[f"{name}_wall_ms"] = cuda_ms(fn, iters)
+    for name, (fn, iters, per) in fns.items():
+        ms, top = device_profile(fn, iters)
+        t[f"{name}_ms"] = ms / per
+        t[f"{name}_top_us"] = [[us / per, k] for us, k in top]
+        t[f"{name}_wall_ms"] = cuda_ms(fn, iters) / per
     out = {"phase": "kernel_parity", "geometry": "1920x1080",
            "mb": geom.mb_size, "blocks": int(nblocks.numel()),
-           "k1_equal": True, "k1_max_abs_err": errs["k1"],
+           "streams": s_n, "k1_equal": True, "k1_max_abs_err": errs["k1"],
            "k2_equal": True, "k2_max_abs_err": errs["k2"],
+           "k3_equal": True, "k3_max_abs_err": errs["k3"],
            "unit": "ms per 1080p picture", **t}
     emit(out)
     return out
+
+
+def _fixture_1080p() -> bytes:
+    return open(os.path.join(TESTDATA, "test1080.m1v"), "rb").read()
+
+
+def _native_frames(data: bytes) -> list:
+    """Every displayed frame of `data` from the C++ host decoder."""
+    from mpeg_tpu.native import NativeHostDecoder
+
+    ref = NativeHostDecoder(data)
+    frames = []
+    while (f := ref.decode_next()) is not None:
+        frames.append(f)
+    return frames
+
+
+def profiled_pass(run, wall_median: float) -> dict:
+    """One more pass of `run` under torch.profiler: how busy the card is
+    and what fills it (rates are taken without the profiler).  The idle
+    share is given against the profiled wall and against the unprofiled
+    median wall, which the profiler does not slow down."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, top = device_activities(prof)
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1 - busy_us / 1e6 / wall,
+            "device_idle_share_unprofiled_wall":
+                1 - busy_us / 1e6 / wall_median,
+            "top_device_us": top}
+
+
+def _check_against_host(frames, want, fs: int, what: str) -> None:
+    """Every frame equal to the host decoder's, compared on the card."""
+    import numpy as np
+    import torch
+
+    if len(frames) != len(want):
+        fail(f"{what}: {len(frames)} frames, host decoder {len(want)}")
+    for i, (a, b) in enumerate(zip(frames, want)):
+        if isinstance(b, np.ndarray):
+            b = torch.from_numpy(b[:fs]).to(a.device)
+        if not torch.equal(a[:fs], b[:fs]):
+            fail(f"{what}: frame {i} differs from NativeHostDecoder")
 
 
 def _digest(frames, geom) -> int:
@@ -213,24 +324,19 @@ def phase_golden() -> None:
 
 
 def phase_e2e_1080p() -> dict:
-    """The main path: the 1080p fixture through the port, all frames held
-    against the C++ host decoder, the kernels' launch counts read from
-    that run, then the end-to-end rate over fresh decoders, without and
-    with the parse prefetch thread, in turns, after one untimed warm-up
-    pass of each."""
-    import numpy as np
+    """The single-stream path: the 1080p fixture through the port, all
+    frames held against the C++ host decoder, the kernels' launch counts
+    read from that run, then the end-to-end rate over fresh decoders,
+    without and with the parse prefetch thread, in turns, after one
+    untimed warm-up pass of each."""
     import torch
 
-    from mpeg_tpu.native import NativeHostDecoder
     from mpeg_tpu.utils.profiling import DecodeStats
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
-    data = open(os.path.join(TESTDATA, "test1080.m1v"), "rb").read()
-    ref = NativeHostDecoder(data)
-    want = []
-    while (f := ref.decode_next()) is not None:
-        want.append(f)
+    data = _fixture_1080p()
+    want = _native_frames(data)
 
     dec = BatchVideoDecoder(data, window=16, device="cuda")
     cuda_kernels.reset_launches()
@@ -240,11 +346,9 @@ def phase_e2e_1080p() -> dict:
                 .launches, "idct_batch": cuda_kernels.idct_batch.launches}
     pictures = len(dec._types)
     fs = dec.geom.frame_size
-    if len(frames) != len(want) or len(frames) != 32:
-        fail(f"1080p: {len(frames)} frames, host decoder {len(want)}")
-    for i, (a, b) in enumerate(zip(frames, want)):
-        if not np.array_equal(a[:fs].cpu().numpy(), b[:fs]):
-            fail(f"1080p frame {i} differs from NativeHostDecoder")
+    if len(want) != 32:
+        fail(f"1080p: the host decoder gave {len(want)} frames, not 32")
+    _check_against_host(frames, want, fs, "1080p")
     if launches["reconstruct_picture"] != pictures or pictures == 0:
         fail(f"K1 launched {launches['reconstruct_picture']} times for "
              f"{pictures} pictures")
@@ -266,25 +370,9 @@ def phase_e2e_1080p() -> dict:
                 "frames": n, "wall_s": wall, "fps": n / wall,
                 "parse_s": stats.host_seconds,
                 "h2d_and_enqueue_s": stats.device_seconds})
-    # One more pass under torch.profiler: how busy the card is and what
-    # fills it (the rate above is taken without the profiler).
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        BatchVideoDecoder(data, window=16, device="cuda").decode_all()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us, top = device_activities(prof)
     wall_median = statistics.median(p["wall_s"] for p in passes[False])
-    profiled = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-                "device_idle_share": 1 - busy_us / 1e6 / wall,
-                # the same busy time against the unprofiled median wall,
-                # which the profiler does not slow down
-                "device_idle_share_unprofiled_wall":
-                    1 - busy_us / 1e6 / wall_median,
-                "top_device_us": top}
+    profiled = profiled_pass(lambda: BatchVideoDecoder(
+        data, window=16, device="cuda").decode_all(), wall_median)
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
 
     out = {"phase": "e2e_1080p", "card": gpu_name_and_power_limit(),
@@ -297,6 +385,188 @@ def phase_e2e_1080p() -> dict:
            "profiled_pass": profiled}
     emit(out)
     return out
+
+
+def phase_recon_multi_1080p() -> dict:
+    """The 1080p fixture with K3 in K1's place (the decoder's internal
+    reconstruct argument): all frames against the C++ host decoder, K3
+    launched twice a picture and K2 once, K1 not at all."""
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.parallel import BatchVideoDecoder
+
+    data = _fixture_1080p()
+    want = _native_frames(data)
+    dec = BatchVideoDecoder(data, window=16, device="cuda")
+    dec._recon = cuda_kernels.reconstruct_picture_multi
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    frames = dec.decode_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"reconstruct_picture_multi":
+                cuda_kernels.reconstruct_picture_multi.launches,
+                "idct_batch": cuda_kernels.idct_batch.launches,
+                "reconstruct_picture": cuda_kernels.reconstruct_picture
+                .launches}
+    pictures = len(dec._types)
+    _check_against_host(frames, want, dec.geom.frame_size,
+                        "1080p through K3")
+    if len(frames) != 32 or launches != {
+            "reconstruct_picture_multi": 2 * pictures,
+            "idct_batch": pictures, "reconstruct_picture": 0}:
+        fail(f"K3 path: {len(frames)} frames, {pictures} pictures, "
+             f"launches {launches}")
+    out = {"phase": "recon_multi_1080p", "frames": len(frames),
+           "pictures": pictures, "equal_to_native_host_decoder": True,
+           "launches": launches, "wall_s_first_pass": wall}
+    emit(out)
+    return out
+
+
+def phase_multistream_golden() -> None:
+    """tests/test_multistream.py's mixed sources in lockstep at window 4
+    on the card: each stream equal to the port's solo decoder on the
+    card, and the whole streams on their goldens."""
+    import torch
+
+    from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
+                                         MultiStreamVideoDecoder)
+
+    es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
+    ps = open(os.path.join(TESTDATA, "test.mpg"), "rb").read()
+    sources = [es, ps, es[:len(es) // 3], es]
+    ms = MultiStreamVideoDecoder(sources, window=4, device="cuda")
+    got = ms.decode_all()
+    fs = ms.geom.frame_size
+    for s, data in enumerate(sources):
+        solo = BatchVideoDecoder(data, window=4, device="cuda").decode_all()
+        if len(got[s]) != len(solo) or not all(
+                torch.equal(a[:fs], b[:fs]) for a, b in zip(got[s], solo)):
+            fail(f"multistream stream {s} differs from its solo decode")
+    hashes = [_digest(g, ms.geom) for g in got]
+    for s, (frames_want, hash_want) in ((0, GOLDEN_VIDEO), (1, GOLDEN_PS),
+                                        (3, GOLDEN_VIDEO)):
+        if (len(got[s]), hashes[s]) != (frames_want, hash_want):
+            fail(f"multistream stream {s}: {len(got[s])} frames, hash "
+                 f"{hashes[s]:#018x}")
+    emit({"phase": "multistream_golden", "window": 4, "chunks": ms.chunks,
+          "frames": [len(g) for g in got],
+          "hashes": [f"{h:#018x}" for h in hashes],
+          "equal_to_solo": True})
+
+
+def _stream_cuts(data: bytes) -> list:
+    """The fixture cut before picture k for each k of STREAM_CUTS."""
+    starts, pos = [], data.find(b"\x00\x00\x01\x00")
+    while pos >= 0:
+        starts.append(pos)
+        pos = data.find(b"\x00\x00\x01\x00", pos + 1)
+    return [data if k is None else data[:starts[k]] for k in STREAM_CUTS]
+
+
+def phase_multistream_1080p() -> dict:
+    """The slice's main path at full width: 64 streams of the 1080p
+    fixture (four lengths) in lockstep at window 2, default chunks.  Every
+    frame of every stream against the C++ host decoder on that stream's
+    bytes, K1's launches against rounds x window x chunks; then the
+    aggregate displayed frames/s over fresh decoders, without and with
+    the parse prefetch thread, in turns, after one untimed warm-up pass
+    of each; then one profiled pass."""
+    import torch
+
+    from mpeg_tpu.utils.profiling import DecodeStats
+    from mpeg_tpu_torch.device import gpu_name_and_power_limit
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.parallel import MultiStreamVideoDecoder
+
+    cuts = _stream_cuts(_fixture_1080p())
+    streams = [cuts[s % len(cuts)] for s in range(N_STREAMS)]
+    want = [[torch.from_numpy(f).cuda() for f in _native_frames(c)]
+            for c in cuts]
+
+    ms = MultiStreamVideoDecoder(streams, window=2, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launches()
+    rounds, frames = 0, [[] for _ in streams]
+    while (got := ms.decode_window()) is not None:
+        rounds += 1
+        for s, f in enumerate(got):
+            frames[s].extend(f)
+    torch.cuda.synchronize()
+    launches = {"reconstruct_picture": cuda_kernels.reconstruct_picture
+                .launches, "idct_batch": cuda_kernels.idct_batch.launches,
+                "reconstruct_picture_multi":
+                    cuda_kernels.reconstruct_picture_multi.launches}
+    fs = ms.geom.frame_size
+    for s in range(N_STREAMS):
+        _check_against_host(frames[s], want[s % len(cuts)], fs,
+                            f"64-stream 1080p, stream {s}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_frames = sum(len(f) for f in frames)
+    bound = rounds * ms.window * ms.chunks
+    if not 0 < launches["reconstruct_picture"] <= bound:
+        fail(f"K1 launched {launches['reconstruct_picture']} times in "
+             f"{rounds} rounds (bound {bound})")
+    del frames, want
+
+    passes = {False: [], True: []}
+    for i in range(1 + E2E_PASSES):
+        for prefetch in (False, True):
+            stats = DecodeStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = MultiStreamVideoDecoder(streams, window=2, device="cuda",
+                                        prefetch=prefetch, stats=stats)
+            n = sum(len(f) for f in d.decode_all())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 0:
+                continue                   # warm-up pass: not timed
+            passes[prefetch].append({
+                "frames": n, "wall_s": wall, "fps": n / wall,
+                "parse_wait_s": stats.host_seconds,
+                "h2d_and_enqueue_s": stats.device_seconds})
+    wall_median = statistics.median(p["wall_s"] for p in passes[False])
+    profiled = profiled_pass(lambda: MultiStreamVideoDecoder(
+        streams, window=2, device="cuda").decode_all(), wall_median)
+    out = {"phase": "multistream_1080p", "card": gpu_name_and_power_limit(),
+           "streams": N_STREAMS, "window": ms.window, "chunks": ms.chunks,
+           "stream_pictures_kept": list(STREAM_CUTS), "rounds": rounds,
+           "frames": n_frames, "equal_to_native_host_decoder": True,
+           "launches": launches, "k1_launch_bound": bound,
+           # the checked pass's peak: it keeps every frame, as decode_all
+           "peak_device_gib": peak_gib,
+           "fps_median": statistics.median(p["fps"] for p in passes[False]),
+           "fps_median_prefetch": statistics.median(
+               p["fps"] for p in passes[True]),
+           "passes": passes[False], "passes_prefetch": passes[True],
+           "profiled_pass": profiled}
+    emit(out)
+    return out
+
+
+def phase_rgba() -> None:
+    """The 1080p fixture with emit_rgba=True: every frame equal to the
+    numpy RGBA of the C++ host decoder's frame."""
+    import numpy as np
+
+    from mpeg_tpu.ops.color import flat_frame_to_rgba
+    from mpeg_tpu_torch.parallel import BatchVideoDecoder
+
+    data = _fixture_1080p()
+    want = _native_frames(data)
+    dec = BatchVideoDecoder(data, window=16, device="cuda", emit_rgba=True)
+    frames = dec.decode_all()
+    if len(frames) != len(want):
+        fail(f"rgba: {len(frames)} frames, host decoder {len(want)}")
+    for i, (a, b) in enumerate(zip(frames, want)):
+        if a.shape != (1080, 1920, 4) or not np.array_equal(
+                a.cpu().numpy(), flat_frame_to_rgba(b, dec.geom, np)):
+            fail(f"rgba frame {i} differs from numpy")
+    emit({"phase": "rgba", "frames": len(frames), "shape": [1080, 1920, 4],
+          "equal_to_numpy": True})
 
 
 def main() -> int:
@@ -320,18 +590,33 @@ def main() -> int:
     phase_build()
     parity = phase_kernel_parity(args.seed)
     phase_golden()
-    e2e = phase_e2e_1080p()
+    phase_e2e_1080p()
+    multi = phase_recon_multi_1080p()
+    phase_multistream_golden()
+    streams = phase_multistream_1080p()
+    phase_rgba()
 
-    emit({"kernels": [{
-        "name": "reconstruct_picture",
-        "route": "cuda",
-        "source": "mpeg_tpu_torch/csrc/recon.cu",
-        "replaces": "mpeg_tpu/ops/pallas_kernels.py:520",
-        "launches": e2e["launches"]["reconstruct_picture"],
-        "max_abs_err": parity["k1_max_abs_err"],
-        "ms": parity["k1_ms"],
-        "plain_ms": parity["k1_plain_ms"],
-    }]})
+    src, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
+    emit({"kernels": [
+        # K1's launches: the 64-stream path (stream-batched K1); its times
+        # per 1080p picture of one 64-stream launch.
+        {"name": "reconstruct_picture", "route": "cuda", "source": src,
+         "replaces": f"{pk}:520",
+         "launches": streams["launches"]["reconstruct_picture"],
+         "max_abs_err": parity["k1_max_abs_err"],
+         "ms": parity["k1_streams_ms"],
+         "plain_ms": parity["k1_streams_plain_ms"]},
+        {"name": "idct_batch", "route": "cuda", "source": src,
+         "replaces": f"{pk}:93",
+         "launches": multi["launches"]["idct_batch"],
+         "max_abs_err": parity["k2_max_abs_err"],
+         "ms": parity["k2_ms"], "plain_ms": parity["k2_plain_ms"]},
+        {"name": "reconstruct_picture_multi", "route": "cuda",
+         "source": src, "replaces": f"{pk}:246",
+         "launches": multi["launches"]["reconstruct_picture_multi"],
+         "max_abs_err": parity["k3_max_abs_err"],
+         "ms": parity["k3_ms"], "plain_ms": parity["k3_plain_ms"]},
+    ]})
     smi = gpu_name_and_power_limit()
     if not smi:
         fail("nvidia-smi gave no name and power limit")

@@ -1,3 +1,3 @@
-"""Device ops: plain PyTorch versions (`video_recon`) and the wrappers of
+"""Device ops: plain PyTorch versions (`video_recon`), the wrappers of
 the hand-written CUDA kernels that replace them on the card
-(`cuda_kernels`)."""
+(`cuda_kernels`), and the RGBA conversion (`color`)."""

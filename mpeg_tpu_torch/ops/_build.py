@@ -76,8 +76,11 @@ def load() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mt_idct_batch.argtypes = [p, p, p, i64, p]
     lib.mt_idct_batch.restype = i32
-    lib.mt_reconstruct_picture.argtypes = [p] * 10 + [i32, i32, p]
-    lib.mt_reconstruct_picture.restype = i32
+    lib.mt_reconstruct_pictures.argtypes = [p] * 5 + [i32] + [p] * 6 + \
+        [i32, i32, p]
+    lib.mt_reconstruct_pictures.restype = i32
+    lib.mt_reconstruct_plane.argtypes = [p] * 10 + [i32, i32, i32, p]
+    lib.mt_reconstruct_plane.restype = i32
     lib.mt_error_string.argtypes = [i32]
     lib.mt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -2,16 +2,21 @@
 
 Port of `mpeg_tpu/ops/pallas_kernels.py`.  Each wrapper takes the plain
 PyTorch version (`video_recon`) for tensors on the CPU; for CUDA tensors it
-launches its kernel or raises — there is no fallback.  Each wrapper counts
-its kernel launches in its `launches` attribute, so a run can show that
-its main path went through the kernel.
+launches its kernel or raises — there is no fallback.  Each kernel counts
+its launches in the `launches` attribute of the wrapper named after it, so
+a run can show that its main path went through the kernel.
 
 - `reconstruct_picture` (K1): one launch per picture — motion
   compensation, the exact IDCT, residual add and clamp for all three
   planes.  Replaces `reconstruct_picture_pallas` and the XLA IDCT that fed
-  it.
+  it.  `reconstruct_pictures` launches the same kernel over one
+  picture-step of many streams in a frame pool (the many-stream decode's
+  stream axis); its launches count in `reconstruct_picture.launches`.
 - `idct_batch` (K2): the standalone batched IDCT.  Replaces
   `idct_batch_pallas`; K1 runs the same device function fused.
+- `reconstruct_picture_multi` (K3): K2, then two plane launches, one for
+  luma and one for Cb|Cr.  Replaces `reconstruct_picture_pallas_multi`
+  (`_plane_pallas`); its count is the plane launches.
 """
 
 from __future__ import annotations
@@ -21,19 +26,41 @@ import torch
 from . import video_recon
 from .video_recon import FrameGeometry
 
+_TABLE_COLS = 5         # cur, fwd, bwd, out slot; picture index
+_MAX_STREAMS = 65535    # gridDim.y
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: expected contiguous {dtype} "
+                         f"{tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
 
 def _check_int32(name, t, shape, device):
-    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or t.device != device:
-        raise ValueError(f"{name}: expected contiguous int32 {tuple(shape)} "
-                         f"on {device}, got {t.dtype} {tuple(t.shape)} "
-                         f"on {t.device}")
+    _check(name, t, torch.int32, shape, device)
+
+
+def _check_plan(geom, dev, coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v,
+                lead=()):
+    """The plan tensors of `lead` pictures (() for one picture)."""
+    mb = geom.mb_size
+    _check_int32("coeffs", coeffs, (*lead, mb, 6, 64), dev)
+    _check_int32("nblocks", nblocks, (*lead, mb, 6), dev)
+    _check_int32("intra_blk", intra_blk, (*lead, mb, 6), dev)
+    for name, t in (("src_sel", src_sel), ("mv_h", mv_h), ("mv_v", mv_v)):
+        _check_int32(name, t, (*lead, mb), dev)
 
 
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def idct_batch(coeffs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
@@ -50,9 +77,8 @@ def idct_batch(coeffs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
         return out
     lib = _build.load()
     with torch.cuda.device(coeffs.device):
-        stream = torch.cuda.current_stream().cuda_stream
         code = lib.mt_idct_batch(coeffs.data_ptr(), nblocks.data_ptr(),
-                                 out.data_ptr(), n, stream)
+                                 out.data_ptr(), n, _stream(coeffs.device))
     idct_batch.launches += 1
     _build.check(code, "idct_batch")
     return out
@@ -61,40 +87,38 @@ def idct_batch(coeffs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
 idct_batch.launches = 0
 
 
+def _check_frames(geom, dev, **frames):
+    for name, t in frames.items():
+        _check(name, t, torch.uint8, (geom.total_size,), dev)
+
+
+def _plan_ptrs(coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v):
+    return (coeffs.data_ptr(), nblocks.data_ptr(), intra_blk.data_ptr(),
+            src_sel.data_ptr(), mv_h.data_ptr(), mv_v.data_ptr())
+
+
 def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
                         intra_blk, src_sel, mv_h, mv_v,
                         geom: FrameGeometry) -> torch.Tensor:
     """One picture into a new flat frame buffer (signature and semantics
     of `video_recon.reconstruct_picture`).  fwd and bwd may be the same
     tensor; the output never aliases an input."""
+    plan = (coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v)
     if _device_kind(cur_flat) == "cpu":
         return video_recon.reconstruct_picture(
-            cur_flat, fwd_flat, bwd_flat, coeffs, nblocks, intra_blk,
-            src_sel, mv_h, mv_v, geom)
+            cur_flat, fwd_flat, bwd_flat, *plan, geom)
     from . import _build
 
     dev = cur_flat.device
-    mb = geom.mb_size
-    for name, t in (("cur", cur_flat), ("fwd", fwd_flat), ("bwd", bwd_flat)):
-        if t.dtype != torch.uint8 or tuple(t.shape) != (geom.total_size,) \
-                or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name}: expected contiguous uint8 "
-                             f"({geom.total_size},) on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    _check_int32("coeffs", coeffs, (mb, 6, 64), dev)
-    _check_int32("nblocks", nblocks, (mb, 6), dev)
-    _check_int32("intra_blk", intra_blk, (mb, 6), dev)
-    for name, t in (("src_sel", src_sel), ("mv_h", mv_h), ("mv_v", mv_v)):
-        _check_int32(name, t, (mb,), dev)
+    _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
+    _check_plan(geom, dev, *plan)
     out = torch.empty_like(cur_flat)
     lib = _build.load()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mt_reconstruct_picture(
+        code = lib.mt_reconstruct_pictures(
             cur_flat.data_ptr(), fwd_flat.data_ptr(), bwd_flat.data_ptr(),
-            coeffs.data_ptr(), nblocks.data_ptr(), intra_blk.data_ptr(),
-            src_sel.data_ptr(), mv_h.data_ptr(), mv_v.data_ptr(),
-            out.data_ptr(), geom.mb_width, geom.mb_height, stream)
+            out.data_ptr(), None, 1, *_plan_ptrs(*plan), geom.mb_width,
+            geom.mb_height, _stream(dev))
     reconstruct_picture.launches += 1
     _build.check(code, "reconstruct_picture")
     return out
@@ -103,7 +127,84 @@ def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
 reconstruct_picture.launches = 0
 
 
+def reconstruct_pictures(pool, table, coeffs, nblocks, intra_blk, src_sel,
+                         mv_h, mv_v, geom: FrameGeometry) -> torch.Tensor:
+    """One picture-step of S streams in ONE launch of K1, in place
+    (signature and semantics of `video_recon.reconstruct_pictures`).
+
+    pool: uint8 [P, total_size]; table: int32 [S, 5] on the pool's device,
+    row s = (cur, fwd, bwd, out slot, picture index; < 0 skips the
+    stream); the plan tensors have a leading picture axis.  The caller
+    keeps the table's slots in [0, P) and its picture indices below the
+    plan's length, and never names a read slot as an out slot: the
+    kernel trusts them.  Returns `pool`."""
+    plan = (coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v)
+    if _device_kind(pool) == "cpu":
+        return video_recon.reconstruct_pictures(pool, table, *plan, geom)
+    from . import _build
+
+    dev = pool.device
+    _check("pool", pool, torch.uint8, (pool.shape[0], geom.total_size), dev)
+    n = table.shape[0] if table.dim() == 2 else 0
+    _check_int32("table", table, (n, _TABLE_COLS), dev)
+    if not 0 < n <= _MAX_STREAMS:
+        raise ValueError(f"table: 1 to {_MAX_STREAMS} streams, got {n}")
+    _check_plan(geom, dev, *plan, lead=(coeffs.shape[0],))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        p = pool.data_ptr()
+        code = lib.mt_reconstruct_pictures(
+            p, p, p, p, table.data_ptr(), n, *_plan_ptrs(*plan),
+            geom.mb_width, geom.mb_height, _stream(dev))
+    reconstruct_picture.launches += 1    # K1's count
+    _build.check(code, "reconstruct_pictures")
+    return pool
+
+
+def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
+                              intra_blk, src_sel, mv_h, mv_v,
+                              geom: FrameGeometry,
+                              pallas_idct: bool = True) -> torch.Tensor:
+    """The bytes of `reconstruct_picture` through K3 (signature and
+    semantics of `video_recon.reconstruct_picture_multi`): the residual
+    from K2 (`pallas_idct=True`, as the reference's default) or from the
+    plain IDCT (False, where the reference takes XLA's), then one luma and
+    one Cb|Cr plane launch."""
+    plan = (coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v)
+    if _device_kind(cur_flat) == "cpu":
+        return video_recon.reconstruct_picture_multi(
+            cur_flat, fwd_flat, bwd_flat, *plan, geom,
+            pallas_idct=pallas_idct)
+    from . import _build
+
+    dev = cur_flat.device
+    _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
+    _check_plan(geom, dev, *plan)
+    blocks, counts = coeffs.view(-1, 64), nblocks.view(-1)
+    res = idct_batch(blocks, counts) if pallas_idct \
+        else video_recon.idct_batch(blocks, counts)
+    out = torch.empty_like(cur_flat)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        for chroma in (0, 1):
+            code = lib.mt_reconstruct_plane(
+                cur_flat.data_ptr(), fwd_flat.data_ptr(),
+                bwd_flat.data_ptr(), res.data_ptr(), nblocks.data_ptr(),
+                intra_blk.data_ptr(), src_sel.data_ptr(), mv_h.data_ptr(),
+                mv_v.data_ptr(), out.data_ptr(), geom.mb_width,
+                geom.mb_height, chroma, _stream(dev))
+            reconstruct_picture_multi.launches += 1
+            _build.check(code, "reconstruct_picture_multi")
+    # Bytes [frame_size, total_size) carry over from the current frame.
+    out[geom.frame_size:].copy_(cur_flat[geom.frame_size:])
+    return out
+
+
+reconstruct_picture_multi.launches = 0
+
+
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every kernel's launch count to 0."""
     idct_batch.launches = 0
     reconstruct_picture.launches = 0
+    reconstruct_picture_multi.launches = 0

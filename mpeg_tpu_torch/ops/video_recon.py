@@ -23,7 +23,9 @@ from mpeg_tpu.ops.video_recon import (
     FrameGeometry, _pass_full, _pass_sparse, _trunc_div2,
 )
 
-__all__ = ["FrameGeometry", "idct_batch", "reconstruct_picture"]
+__all__ = ["FrameGeometry", "idct_batch", "mb_window_starts",
+           "reconstruct_picture", "reconstruct_picture_multi",
+           "reconstruct_pictures", "reconstruct_plane"]
 
 
 # --------------------------------------------------------------------------
@@ -62,22 +64,39 @@ def idct_batch(coeffs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
 # (reference: mpeg_tpu/ops/video_recon.py:234-385)
 # --------------------------------------------------------------------------
 
+def _window_pred(src_flat, ys, xs, oh_s, ov_s, bw: int, stride: int):
+    """Half-pel prediction of `bw`-pixel row segments from the flat
+    [fwd | bwd] stack.  ys, xs: int32 [...] window starts (row, column;
+    the row is clamped here to [0, rows2 - 2] as the reference's clipped
+    gather does); oh_s, ov_s: int32 [..., 1].  The window reads the flat
+    buffer directly: taps past the end of a row continue into the next
+    row's first bytes, and taps past the end of the stack read 0 — the
+    reference's 32 extension columns, in flat terms.
+    Blend: (a + b*oh + c*ov + d*oh*ov + bias) >> (oh + ov)."""
+    rows2 = src_flat.shape[0] // stride
+    ys = ys.clamp(0, rows2 - 2)
+    start = (ys * stride + xs).long()[..., None]
+    padded = torch.cat([src_flat, src_flat.new_zeros(stride + 32)])
+    taps = torch.arange(bw + 1, device=src_flat.device)
+    top = padded[start + taps].to(torch.int32)               # [..., bw+1]
+    bot = padded[start + stride + taps].to(torch.int32)
+    a, b = top[..., :bw], top[..., 1:]
+    c, d = bot[..., :bw], bot[..., 1:]
+    sh = oh_s + ov_s
+    bias = (1 << sh) >> 1
+    return (a + b * oh_s + c * ov_s + d * (oh_s & ov_s) + bias) >> sh
+
+
 def _mc_plane(src_flat, sel, hp, vp, oh, ov, sel_bwd, base: int,
               stride: int, bw: int, plane_h: int, geom: FrameGeometry,
               cur_plane):
     """Motion-compensate one plane from the stacked [fwd | bwd] buffer.
 
     Each (pixel row, macroblock) window starts at a flat byte address; its
-    row is the floor quotient by `stride`, clamped to [0, rows2 - 2] as the
-    reference's clipped gather does, and its column the floor remainder.
-    The window then reads the flat buffer directly: taps past the end of a
-    row continue into the next row's first bytes, and taps past the end of
-    the stack read 0 — the reference's 32 extension columns, in flat terms.
-    Blend: (a + b*oh + c*ov + d*oh*ov + bias) >> (oh + ov).
-    """
+    row is the floor quotient by `stride` and its column the floor
+    remainder (`_window_pred` reads the window)."""
     dev = src_flat.device
     n = src_flat.shape[0]
-    rows2 = n // stride
     mbw = geom.mb_width
     shift = 4 if bw == 16 else 3
     y = torch.arange(plane_h, dtype=torch.int32, device=dev)[:, None]
@@ -87,24 +106,9 @@ def _mc_plane(src_flat, sel, hp, vp, oh, ov, sel_bwd, base: int,
 
     flat = base + (y + vp[rowmb]) * stride + c * bw + hp[rowmb] + off[rowmb]
     ys = torch.div(flat, stride, rounding_mode="floor")
-    xs = flat - ys * stride
-    ys = ys.clamp(0, rows2 - 2)
-    start = (ys * stride + xs).long()[..., None]             # [h, mbw, 1]
-
-    padded = torch.cat([src_flat, src_flat.new_zeros(stride + 32)])
-    taps = torch.arange(bw + 1, device=dev)
-    top = padded[start + taps].to(torch.int32)               # [h, mbw, bw+1]
-    bot = padded[start + stride + taps].to(torch.int32)
-    a, b = top[..., :bw], top[..., 1:]
-    c_, d = bot[..., :bw], bot[..., 1:]
-
-    oh_s = oh[rowmb][..., None]
-    ov_s = ov[rowmb][..., None]
-    sh = oh_s + ov_s
-    bias = (1 << sh) >> 1
-    pred = (a + b * oh_s + c_ * ov_s + d * (oh_s & ov_s) + bias) >> sh
-    pred = pred.reshape(plane_h, mbw * bw)
-
+    pred = _window_pred(src_flat, ys, flat - ys * stride,
+                        oh[rowmb][..., None], ov[rowmb][..., None], bw,
+                        stride).reshape(plane_h, mbw * bw)
     sel_px = sel[rowmb].repeat_interleave(bw, dim=1)
     return torch.where(sel_px > 0, pred, cur_plane.to(torch.int32))
 
@@ -121,6 +125,17 @@ def _chroma_blocks_to_plane(vals, geom: FrameGeometry):
     mh, mw = geom.mb_height, geom.mb_width
     return vals.reshape(mh, mw, 8, 8).permute(0, 2, 1, 3) \
         .reshape(geom.chroma_height, geom.chroma_width)
+
+
+def _per_px_luma(a, geom: FrameGeometry):
+    """Per-block values [mb, 4] -> per-pixel luma plane."""
+    return _luma_blocks_to_plane(
+        a[:, :, None].expand(geom.mb_size, 4, 64), geom)
+
+
+def _per_px_chroma(a, geom: FrameGeometry):
+    """Per-macroblock values [mb] -> per-pixel chroma plane."""
+    return _chroma_blocks_to_plane(a[:, None].expand(geom.mb_size, 64), geom)
 
 
 def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
@@ -155,7 +170,6 @@ def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
 
     vals = idct_batch(coeffs, nblocks)                       # [mb, 6, 64]
     coded = (nblocks > 0).to(torch.int32)
-    mb = coeffs.shape[0]
 
     def compose(pred, res, coded_px, intra_px):
         # coded blocks: clamp((intra ? 0 : pred) + residual); else pred
@@ -163,19 +177,137 @@ def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
         out = torch.where(coded_px > 0, (base + res).clamp(0, 255), pred)
         return out.to(torch.uint8).reshape(-1)
 
-    def per_block_luma(a):       # [mb, 4] -> per-pixel plane
-        return _luma_blocks_to_plane(a[:, :, None].expand(mb, 4, 64), geom)
-
-    def per_block_chroma(a):     # [mb] -> per-pixel plane
-        return _chroma_blocks_to_plane(a[:, None].expand(mb, 64), geom)
-
     out_y = compose(pred_y, _luma_blocks_to_plane(vals[:, :4], geom),
-                    per_block_luma(coded[:, :4]),
-                    per_block_luma(intra_blk[:, :4]))
+                    _per_px_luma(coded[:, :4], geom),
+                    _per_px_luma(intra_blk[:, :4], geom))
     out_cb = compose(pred_cb, _chroma_blocks_to_plane(vals[:, 4], geom),
-                     per_block_chroma(coded[:, 4]),
-                     per_block_chroma(intra_blk[:, 4]))
+                     _per_px_chroma(coded[:, 4], geom),
+                     _per_px_chroma(intra_blk[:, 4], geom))
     out_cr = compose(pred_cr, _chroma_blocks_to_plane(vals[:, 5], geom),
-                     per_block_chroma(coded[:, 5]),
-                     per_block_chroma(intra_blk[:, 5]))
+                     _per_px_chroma(coded[:, 5], geom),
+                     _per_px_chroma(intra_blk[:, 5], geom))
     return torch.cat([out_y, out_cb, out_cr, cur_flat[geom.frame_size:]])
+
+
+def reconstruct_pictures(pool, table, coeffs, nblocks, intra_blk, src_sel,
+                         mv_h, mv_v, geom: FrameGeometry) -> torch.Tensor:
+    """One picture-step of S streams over a frame pool, in place.
+
+    pool: uint8 [P, total_size] frames; table: int32 [S, 5], row s the
+    stream's (cur, fwd, bwd, out) pool slots and its picture index into
+    coeffs int32 [G, mb, 6, 64], nblocks / intra_blk int32 [G, mb, 6] and
+    src_sel / mv_h / mv_v int32 [G, mb].  Each row with a picture index
+    >= 0 writes `reconstruct_picture` of its slots into pool[out]; a row
+    with a negative index is a no-op.  An out slot is never a slot the
+    step reads.  Returns `pool`, updated in place (the pool holds every
+    stream's frames, so the step allocates none)."""
+    for cur, fwd, bwd, out, pic in table.tolist():
+        if pic < 0:
+            continue
+        pool[out] = reconstruct_picture(
+            pool[cur], pool[fwd], pool[bwd], coeffs[pic], nblocks[pic],
+            intra_blk[pic], src_sel[pic], mv_h[pic], mv_v[pic], geom)
+    return pool
+
+
+# --------------------------------------------------------------------------
+# Multi-launch reconstruct: per-plane passes fed by a separate IDCT
+# (reference: mpeg_tpu/ops/pallas_kernels.py _mb_window_starts,
+# _plane_pallas, reconstruct_picture_pallas_multi)
+# --------------------------------------------------------------------------
+
+def mb_window_starts(sel_bwd, hp, vp, base: int, stride: int, bw: int,
+                     geom: FrameGeometry, src_len: int):
+    """Per-macroblock window starts (ys0, xs), int32 [mbh, mbw]: the floor
+    quotient and remainder of the flat address of the macroblock's pixel
+    row 0.  Pixel row r starts r rows lower, at the same column."""
+    mbh, mbw = geom.mb_height, geom.mb_width
+    dev = hp.device
+    row0 = torch.arange(mbh, dtype=torch.int32, device=dev)[:, None] * bw
+    col0 = torch.arange(mbw, dtype=torch.int32, device=dev)[None, :] * bw
+    g = lambda a: a.reshape(mbh, mbw)                        # noqa: E731
+    off = torch.where(sel_bwd, src_len // 2, 0).to(torch.int32)
+    flat0 = base + (row0 + g(vp)) * stride + col0 + g(hp) + g(off)
+    ys0 = torch.div(flat0, stride, rounding_mode="floor")
+    return ys0, flat0 - ys0 * stride
+
+
+def reconstruct_plane(src_stack, cur_plane, res_plane, coded_px, intra_px,
+                      ys0, xs, oh, ov, sel, bw: int, stride: int):
+    """MC, residual add and clamp over a plane stack of macroblock rows
+    (the counterpart of `_plane_pallas`; Cb and Cr stack into one call,
+    their bases folded into the window starts).
+
+    src_stack: flat uint8 [fwd | bwd]; ys0, xs, oh, ov, sel: int32
+    [mb_rows, mbw] per macroblock; cur_plane uint8 and res_plane,
+    coded_px, intra_px int32 [mb_rows * bw, mbw * bw].  Each pixel row's
+    window start ys0 + r is clamped on its own.  Returns uint8
+    [mb_rows * bw, mbw * bw]."""
+    mb_rows, mbw = ys0.shape
+    h = mb_rows * bw
+    y = torch.arange(h, dtype=torch.int32, device=ys0.device)
+    row = (y // bw).long()                  # each pixel row's MB row
+    ys = ys0[row] + (y % bw)[:, None]                        # [h, mbw]
+    pred = _window_pred(src_stack, ys, xs[row], oh[row][..., None],
+                        ov[row][..., None], bw, stride).reshape(h, mbw * bw)
+    sel_px = sel.repeat_interleave(bw, 0).repeat_interleave(bw, 1)
+    pred = torch.where(sel_px > 0, pred, cur_plane.to(torch.int32))
+    base = torch.where(intra_px > 0, 0, pred)
+    out = torch.where(coded_px > 0, (base + res_plane).clamp(0, 255), pred)
+    return out.to(torch.uint8)
+
+
+def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs,
+                              nblocks, intra_blk, src_sel, mv_h, mv_v,
+                              geom: FrameGeometry,
+                              pallas_idct: bool = True) -> torch.Tensor:
+    """The bytes of `reconstruct_picture` in three passes: the batched
+    IDCT, one luma plane pass and one fused Cb|Cr pass.  `pallas_idct`
+    names the IDCT the reference takes (its Pallas kernel or XLA's); both
+    are this module's `idct_batch` here."""
+    del pallas_idct
+    src_stack = torch.cat([fwd_flat, bwd_flat])
+    src_len = src_stack.shape[0]
+
+    hp, vp, oh, ov = mv_h >> 1, mv_v >> 1, mv_h & 1, mv_v & 1
+    cm_h, cm_v = _trunc_div2(mv_h), _trunc_div2(mv_v)
+    chp, cvp, coh, cov = cm_h >> 1, cm_v >> 1, cm_h & 1, cm_v & 1
+    sel_bwd = src_sel == 2
+
+    vals = idct_batch(coeffs, nblocks)                       # [mb, 6, 64]
+    coded = (nblocks > 0).to(torch.int32)
+
+    lw, cw = geom.luma_width, geom.chroma_width
+    cb0 = geom.luma_size
+    cr0 = geom.luma_size + geom.chroma_size
+    cur_y = cur_flat[:cb0].reshape(geom.luma_height, lw)
+    cur_cb = cur_flat[cb0:cr0].reshape(geom.chroma_height, cw)
+    cur_cr = cur_flat[cr0:geom.frame_size].reshape(geom.chroma_height, cw)
+    g = lambda a: a.reshape(geom.mb_height, geom.mb_width)   # noqa: E731
+
+    ys_y, xs_y = mb_window_starts(sel_bwd, hp, vp, 0, lw, 16, geom, src_len)
+    out_y = reconstruct_plane(
+        src_stack, cur_y, _luma_blocks_to_plane(vals[:, :4], geom),
+        _per_px_luma(coded[:, :4], geom),
+        _per_px_luma(intra_blk[:, :4], geom),
+        ys_y, xs_y, g(oh), g(ov), g(src_sel), 16, lw)
+
+    # Cb and Cr in one pass: same stride and motion terms, the bases
+    # folded into the window starts, the planes stacked along rows.
+    ys_cb, xs_cb = mb_window_starts(sel_bwd, chp, cvp, cb0, cw, 8, geom,
+                                    src_len)
+    ys_cr, xs_cr = mb_window_starts(sel_bwd, chp, cvp, cr0, cw, 8, geom,
+                                    src_len)
+    cat = lambda a, b: torch.cat([a, b])                     # noqa: E731
+    out_c = reconstruct_plane(
+        src_stack, cat(cur_cb, cur_cr),
+        cat(_chroma_blocks_to_plane(vals[:, 4], geom),
+            _chroma_blocks_to_plane(vals[:, 5], geom)),
+        cat(_per_px_chroma(coded[:, 4], geom),
+            _per_px_chroma(coded[:, 5], geom)),
+        cat(_per_px_chroma(intra_blk[:, 4], geom),
+            _per_px_chroma(intra_blk[:, 5], geom)),
+        cat(ys_cb, ys_cr), cat(xs_cb, xs_cr), cat(g(coh), g(coh)),
+        cat(g(cov), g(cov)), cat(g(src_sel), g(src_sel)), 8, cw)
+    return torch.cat([out_y.reshape(-1), out_c.reshape(-1),
+                      cur_flat[geom.frame_size:]])

@@ -14,7 +14,9 @@ inherited by `BatchVideoDecoder` below.  Per window the device runs:
    the fused CUDA kernel for CUDA tensors, the plain version on the CPU);
 4. frame rotation.  The host knows every picture's type from the blob's
    flags, so the (current, forward, backward) carry rotates by swapping
-   tensor references instead of the JAX scan's three full-frame selects.
+   tensor references instead of the JAX scan's three full-frame selects;
+5. with `emit_rgba`, each displayed frame converts to RGBA
+   (`ops.color.flat_frame_to_rgba`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from mpeg_tpu.tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
 
 from ..device import resolve_device
 from ..ops import cuda_kernels
+from ..ops.color import flat_frame_to_rgba
 
 _NB_CLASS_REP = _ref._NB_CLASS_REP
 _MIN_KM = _ref._MIN_KM
@@ -127,16 +130,25 @@ class WindowDecoder(nn.Module):
     (carry, displays).
 
     carry = (current, forward, backward) flat uint8 [total_size] frames;
-    displays uint8 [window, total_size], row t the frame the reference's
-    Decode() returns after picture t.  `flags` are the blob's per-step
-    flags as the host packed them (bit0 reference picture, bit1 valid).
-    The carry's tensors are never written: each picture's reconstruct
-    allocates its output, and rotation swaps references.
+    displays uint8 [window, total_size] (RGBA: [window, H, W, 4]), row t
+    the frame the reference's Decode() returns after picture t.  `flags`
+    are the blob's per-step flags as the host packed them (bit0 reference
+    picture, bit1 valid).  The carry's tensors are never written: each
+    picture's reconstruct allocates its output, and rotation swaps
+    references.
+
+    `recon` is the per-picture reconstruct, a function with the signature
+    of `cuda_kernels.reconstruct_picture` (the reference's `make_scan_step`
+    `recon`): K1 by default, `cuda_kernels.reconstruct_picture_multi` to
+    run K3 in its place.
     """
 
-    def __init__(self, geom: FrameGeometry, window: int, km: int, ke: int):
+    def __init__(self, geom: FrameGeometry, window: int, km: int, ke: int,
+                 emit_rgba: bool = False,
+                 recon=cuda_kernels.reconstruct_picture):
         super().__init__()
         self.geom, self.window, self.km, self.ke = geom, window, km, ke
+        self.emit_rgba, self.recon = emit_rgba, recon
         self.register_buffer("premult", torch.tensor(
             PREMULTIPLIER_MATRIX, dtype=torch.int32), persistent=False)
         self.register_buffer("nb_class_rep", torch.tensor(
@@ -149,17 +161,21 @@ class WindowDecoder(nn.Module):
         meta = unpack_blob_meta(meta_esc, geom, window, self.km, self.ke,
                                 self.nb_class_rep)
         cur, fwd, bwd = carry
-        disps = torch.empty((window, geom.total_size), dtype=torch.uint8,
+        shape = (geom.height, geom.width, 4) if self.emit_rgba \
+            else (geom.total_size,)
+        disps = torch.empty((window, *shape), dtype=torch.uint8,
                             device=cur.device)
         for t in range(window):
             is_ref, run = flags[t] & 1, flags[t] & 2
             if run:                  # a reference's forward aliases backward
-                new = cuda_kernels.reconstruct_picture(
+                new = self.recon(
                     cur, bwd if is_ref else fwd, bwd, coeffs[t],
                     *(meta[k][t] for k in _PLAN_FIELDS), geom)
             else:                    # padding step: the carry stays
                 new = cur
-            disps[t].copy_(bwd if is_ref else new)
+            disp = bwd if is_ref else new
+            disps[t].copy_(flat_frame_to_rgba(disp, geom) if self.emit_rgba
+                           else disp)
             if is_ref and run:
                 cur, fwd, bwd = fwd, bwd, new
             else:
@@ -188,30 +204,32 @@ class BatchVideoDecoder(_ref.BatchVideoDecoder):
 
     `device` is required ("cuda" or "cpu").  On "cuda" each picture is one
     launch of the fused reconstruct kernel; on "cpu" the plain PyTorch
-    version runs.  The other arguments are the reference decoder's.
+    version runs.  With `emit_rgba=True` displayed frames are [H, W, 4]
+    uint8 RGBA tensors on `device`.  The other arguments are the
+    reference decoder's.
     """
 
-    def __init__(self, buf, window: int = None, *, device,
-                 emit_rgba: bool = False, **kwargs):
-        if emit_rgba:
-            raise NotImplementedError(
-                "emit_rgba=True: RGBA output is still to port "
-                "(ROADMAP, 'Still to port' item 3: color/RGBA)")
+    # The per-picture reconstruct `WindowDecoder` runs (internal: K3's
+    # smoke run sets cuda_kernels.reconstruct_picture_multi here).
+    _recon = staticmethod(cuda_kernels.reconstruct_picture)
+
+    def __init__(self, buf, window: int = None, *, device, **kwargs):
         self.device = resolve_device(device)
         if kwargs.get("transport") in (None, "blob"):
             super().__init__(buf, window, **kwargs)
         if getattr(self, "transport", None) != "blob":
             raise NotImplementedError(
                 "transport='dense' is still to port (ROADMAP, 'Still to "
-                "port' item 3: color/RGBA and the dense transport); the "
-                "port decodes the blob transport")
+                "port': the dense transport); the port decodes the blob "
+                "transport")
 
     def _ensure_device_state(self, caps=None):
         if caps is None:
             caps = (self._km, self._ke)
         if self._scan is None or self._scan_caps != caps:
-            self._scan = WindowDecoder(self.geom, self.window, *caps) \
-                .to(self.device)
+            self._scan = WindowDecoder(self.geom, self.window, *caps,
+                                       emit_rgba=self.emit_rgba,
+                                       recon=self._recon).to(self.device)
             self._scan_caps = caps
         if self._carry is None:
             # Three distinct buffers, as the reference's carry.
@@ -247,7 +265,9 @@ class BatchVideoDecoder(_ref.BatchVideoDecoder):
             if self._has_reference_frame and self._stream_ended() \
                     and self._types and self._types[-1] != PICTURE_TYPE_B:
                 self._has_reference_frame = False
-                return [self._carry[2].clone()], 0
+                flush = self._carry[2]   # backward
+                return [flat_frame_to_rgba(flush, self.geom)
+                        if self.emit_rgba else flush.clone()], 0
             return [], 0
 
         self._ensure_device_state(caps)

@@ -1,0 +1,339 @@
+"""Many-stream lockstep video decode on a torch device through ONE global
+record chain.
+
+Port of the device half of `mpeg_tpu/parallel/multistream.py`.  The host
+half — the per-stream native parsers filling disjoint picture slots of
+one logical S*window-picture window blob, the recycled host slots, the
+prefetch thread, the per-stream reference delay and end-of-stream flush —
+is the JAX package's own, inherited by `MultiStreamVideoDecoder` below.
+Per round the device runs:
+
+1. one `densify_split` over all S*window pictures (the delta chain runs
+   across stream boundaries);
+2. one `unpack_blob_meta`;
+3. per time step t, one stream-batched K1 launch
+   (`ops.cuda_kernels.reconstruct_pictures`) over every stream, or one
+   per chunk of S/chunks streams: the JAX version's `lax.map` over a
+   `vmap` becomes K1's stream axis;
+4. rotation by swapping frame-pool slot indices on the host: every
+   stream's carry lives in one pool of 4 frames a stream (current,
+   forward, backward and the free frame the next picture is written to),
+   and the host, which knows every stream's flags, rotates slot numbers
+   instead of selecting full frames;
+5. the step's displayed frames gathered into [S, window, total_size]
+   (RGBA: [S, window, H, W, 4]).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+from torch import nn
+
+from mpeg_tpu.ops.video_recon import FrameGeometry
+from mpeg_tpu.parallel import multistream as _ref
+from mpeg_tpu.parallel.batch import _MIN_KM, pool_bucket
+from mpeg_tpu.tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
+
+from ..device import resolve_device
+from ..ops import cuda_kernels
+from ..ops.color import flat_frame_to_rgba
+from .batch import _NB_CLASS_REP, _PLAN_FIELDS, densify_split, \
+    unpack_blob_meta
+
+_SLOTS = 4   # pool frames a stream: current, forward, backward, free
+
+
+def initial_carry(geom: FrameGeometry, n_streams: int, device) -> tuple:
+    """(pool, slots): a zeroed frame pool uint8 [4*S, total_size] on
+    `device`, and each stream's (current, forward, backward, free) pool
+    slots, int64 [S, 4] on the host."""
+    pool = torch.zeros((_SLOTS * n_streams, geom.total_size),
+                       dtype=torch.uint8, device=device)
+    slots = np.arange(_SLOTS * n_streams, dtype=np.int64) \
+        .reshape(n_streams, _SLOTS)
+    return pool, slots
+
+
+class GlobalWindowDecoder(nn.Module):
+    """Decode one global window of S streams x `window` pictures
+    (reference: multistream.py make_global_scan_decoder):
+    (carry, meta_esc, main_part, flags) -> (carry, displays).
+
+    carry = (pool, slots) as `initial_carry` makes it; stream s owns
+    pictures [s*window, (s+1)*window) of the global window and `flags`
+    int32 [S*window] are the blob's per-picture flags (bit0 reference
+    picture, bit1 valid).  displays uint8 [S, window, total_size] (RGBA:
+    [S, window, H, W, 4]), [s, t] the frame the reference's Decode()
+    returns after stream s's picture t.  Each step writes every running
+    stream's picture into its free slot of the pool, in place: the pool's
+    other frames are never written.
+    """
+
+    def __init__(self, geom: FrameGeometry, n_streams: int, window: int,
+                 kmg: int, keg: int, chunks: int, emit_rgba: bool = False):
+        super().__init__()
+        if n_streams % chunks:
+            raise ValueError(f"chunks={chunks} does not divide "
+                             f"{n_streams} streams")
+        self.geom, self.n, self.window = geom, n_streams, window
+        self.kmg, self.keg, self.chunks = kmg, keg, chunks
+        self.emit_rgba = emit_rgba
+        self.register_buffer("premult", torch.tensor(
+            PREMULTIPLIER_MATRIX, dtype=torch.int32), persistent=False)
+        self.register_buffer("nb_class_rep", torch.tensor(
+            _NB_CLASS_REP, dtype=torch.int32), persistent=False)
+
+    def step_tables(self, slots: np.ndarray, flags: np.ndarray):
+        """The round's K1 tables on the host: (table int32 [window, S, 5],
+        display slots int64 [window, S], slots after the round)."""
+        s_n, w_n = self.n, self.window
+        fl = np.asarray(flags).reshape(s_n, w_n)
+        slots = slots.copy()
+        table = np.empty((w_n, s_n, 5), np.int32)
+        disp = np.empty((w_n, s_n), np.int64)
+        for s in range(s_n):
+            cur, fwd, bwd, free = slots[s]
+            for t in range(w_n):
+                is_ref, run = fl[s, t] & 1, fl[s, t] & 2
+                # A reference picture's forward aliases backward; a
+                # padding step runs nothing and the carry stays.
+                table[t, s] = (cur, bwd if is_ref else fwd, bwd, free,
+                               s * w_n + t if run else -1)
+                disp[t, s] = bwd if is_ref else (free if run else cur)
+                if run and is_ref:
+                    cur, fwd, bwd, free = fwd, bwd, free, cur
+                elif run:
+                    cur, free = free, cur
+            slots[s] = (cur, fwd, bwd, free)
+        return table, disp, slots
+
+    def forward(self, carry, meta_esc, main_part, flags):
+        geom, mb = self.geom, self.geom.mb_size
+        gw = self.n * self.window
+        pool, slots = carry
+        dev = pool.device
+        coeffs = densify_split(meta_esc, main_part, geom, gw, self.keg,
+                               self.premult).view(gw, mb, 6, 64)
+        meta = unpack_blob_meta(meta_esc, geom, gw, self.kmg, self.keg,
+                                self.nb_class_rep)
+        plan = [meta[k] for k in _PLAN_FIELDS]
+        table, disp, slots = self.step_tables(slots, flags)
+        dev_table = torch.from_numpy(table).to(dev)
+        dev_disp = torch.from_numpy(disp).to(dev)
+
+        shape = (geom.height, geom.width, 4) if self.emit_rgba \
+            else (geom.total_size,)
+        disps = torch.empty((self.window, self.n, *shape),
+                            dtype=torch.uint8, device=dev)
+        per = self.n // self.chunks
+        for t in range(self.window):
+            for c in range(0, self.n, per):
+                if (table[t, c:c + per, 4] >= 0).any():
+                    cuda_kernels.reconstruct_pictures(
+                        pool, dev_table[t, c:c + per], coeffs, *plan, geom)
+            # Gathered per step: a displayed frame's slot may be the free
+            # slot the next step writes.
+            if self.emit_rgba:
+                disps[t] = flat_frame_to_rgba(pool[dev_disp[t]], geom)
+            else:
+                torch.index_select(pool, 0, dev_disp[t], out=disps[t])
+        return (pool, slots), disps.transpose(0, 1)
+
+
+class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
+    """Lockstep decoder for N independent video sources on one torch
+    device.  Same per-stream output as
+    `mpeg_tpu.parallel.MultiStreamVideoDecoder` (each stream equals its
+    solo `BatchVideoDecoder`); displayed frames are flat uint8
+    [total_size] tensors on `device` (RGBA with `emit_rgba=True`:
+    [H, W, 4]).
+
+    `device` is required ("cuda" or "cpu").  On "cuda" each time step of
+    a round is `chunks` launches of the stream-batched K1, S/chunks
+    streams each; on "cpu" the plain version runs.  `recon`: "auto" and
+    "pallas" run K1; "xla" has no counterpart in the port and raises on a
+    CUDA device (on the CPU every choice runs the plain version).
+    `stats` (an optional `DecodeStats`) records per round the parse time
+    the round waited for, and the h2d copy and enqueue time.  The other
+    arguments are the reference decoder's.
+    """
+
+    def __init__(self, sources, window: int = 2, chunks: int = None,
+                 pool_buckets: tuple = None, emit_rgba: bool = False,
+                 recon: str = "auto", prefetch: bool = False, *, device,
+                 stats=None):
+        self.device = resolve_device(device)
+        if recon not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown recon {recon!r}")
+        if recon == "xla" and self.device.type == "cuda":
+            raise ValueError("recon='xla': the port has no XLA "
+                             "formulation; 'auto' and 'pallas' run the "
+                             "CUDA kernel")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        # The reference asserts the global dense span from `window`; with
+        # window 0 its assert holds, and the ValueError below replaces it.
+        super().__init__(sources, 0, chunks, pool_buckets, emit_rgba, recon,
+                         prefetch)
+        self.window = window
+        span = self.n * window * self.geom.mb_size * 6 * 64
+        if span >= 2 ** 31:
+            raise ValueError(
+                f"global dense span {span} overflows the int32 index "
+                "cumsum; lower window or split the stream set")
+        self.stats = stats
+
+    # -- host fill (the reference's body; only the reuse gate differs) ------
+
+    def _fill(self):
+        """Parse one global window; returns (slot, types [S, W], nm,
+        caps) — caps pins the (kmg, keg) layout the window was packed
+        with, so a prefetching consumer compiles against the right
+        shapes even if a LATER window has already grown the sticky
+        buckets.
+        Pool growth mid-window copies the partially-filled buffers into
+        the grown layout and RESUMES (the parsers have consumed those
+        pictures; only the pending picture is re-emitted)."""
+        gw = self.n * self.window
+        if self._slots is None:
+            self._slots = [_ref._Slot(self.geom, gw, self._kmg, self._keg)
+                           for _ in range(2)]
+            self._slot_i = 0
+        slot = self._slots[self._slot_i]
+        # Reuse barrier: wait until the consumer HANDED the slot back
+        # (evt).  The consumer's h2d copies from pageable host memory
+        # block, so the slot is free once it hands it back: no device
+        # gate is needed.
+        while not slot.evt.wait(timeout=0.5):
+            if self._closed:
+                raise RuntimeError("decoder closed")
+        v = slot.views
+        nm = ne = pm = pe = 0
+        for s, p in enumerate(self.parsers):
+            w_done = s * self.window
+            end = (s + 1) * self.window
+            while w_done < end:
+                n, nm, ne, pending, pm, pe = p.blob_window(
+                    w_done, end, self._kmg, self._keg, nm, ne,
+                    v["main_rec"], v["esc_didx"], v["esc_val"],
+                    v["mv_h"], v["mv_v"], v["nbcls"], v["mbmisc"],
+                    v["flags"], slot.types,
+                    hw_nm=0, hw_ne=0,   # one numpy pad below instead
+                    prev_m=pm, prev_e=pe)
+                w_done += n
+                if pending == 0:
+                    break   # stream dry (tail slots zeroed by impl)
+                # Global pool overflow: grow the sticky buckets, copy
+                # the partial window into the new layout (the delta
+                # chain is self-contained), resume at this parser.
+                cm, ce = p.blob_counts()
+                span = gw * self.geom.mb_size * 6 * 64
+                slack = (span >> 16) + gw + 2
+                self._kmg = pool_bucket(nm + cm + slack, self._kmg)
+                self._keg = pool_bucket(ne + ce + slack, self._keg)
+                old_types = slot.types
+                old_v = v
+                for other in self._slots:
+                    while not other.evt.wait(timeout=0.5):
+                        if self._closed:
+                            raise RuntimeError("decoder closed")
+                self._slots = [_ref._Slot(self.geom, gw, self._kmg,
+                                          self._keg) for _ in range(2)]
+                self._slot_i = 0
+                slot = self._slots[0]
+                v = slot.views
+                for k in old_v:
+                    v[k][:old_v[k].size] = old_v[k]
+                slot.types[:] = old_types
+                # Copied prefixes end in the OLD layout's zero pad
+                # tails; beyond them the fresh-slot full hwm pads below.
+        # Zero the pad tails down from the previous fill (or the full
+        # capacity for a fresh slot) — the prefix-transfer contract
+        # needs [fill, bucket) to be zero records.
+        hwm_m, hwm_e = slot.hwm
+        if hwm_m > nm:
+            slot.main[4 * nm:4 * hwm_m] = 0
+        if hwm_e > ne:
+            v["esc_didx"][ne:hwm_e] = 0
+            v["esc_val"][ne:hwm_e] = 0
+        slot.hwm = (nm, ne)
+        self._slot_i = (self._slot_i + 1) % len(self._slots)
+        slot.evt.clear()   # handed out; the consumer sets it back after
+                           # its copies (or when it skips the dispatch)
+        # types is COPIED out: the consumer reads it on the host after
+        # it hands the slot back, at which point a prefetch producer
+        # may already be refilling the slot's buffers.
+        return (slot, slot.types.reshape(self.n, self.window).copy(), nm,
+                (self._kmg, self._keg))
+
+    # -- device round --------------------------------------------------------
+
+    def _ensure_device(self, caps):
+        if self._decode is None or self._caps != caps:
+            self._decode = GlobalWindowDecoder(
+                self.geom, self.n, self.window, caps[0], caps[1],
+                self.chunks, emit_rgba=self.emit_rgba).to(self.device)
+            self._caps = caps
+        if self._carry is None:
+            self._carry = initial_carry(self.geom, self.n, self.device)
+
+    def decode_window(self):
+        """One lockstep round; None when every stream is exhausted."""
+        if self._closed:
+            return None
+        t0 = time.perf_counter()
+        slot, types, nm, caps = self._next_filled()
+        t_parse = time.perf_counter() - t0
+        self._ensure_device(caps)
+        if not types.any():
+            slot.evt.set()   # nothing dispatched; slot reusable as-is
+            # All streams dry this round: flush pending reference frames.
+            pool, slots = self._carry
+            out = [[] for _ in range(self.n)]
+            any_flush = False
+            for s in range(self.n):
+                if self._has_ref[s] and not self._flushed[s] and \
+                        self._last_type[s] != PICTURE_TYPE_B:
+                    frame = pool[slots[s, 2]]   # backward
+                    out[s] = [flat_frame_to_rgba(frame, self.geom)
+                              if self.emit_rgba else frame.clone()]
+                    self._flushed[s] = True
+                    any_flush = True
+            return out if any_flush else None
+
+        # At least one stream produced pictures this round.  The copies
+        # block (pageable host memory), so the slot goes back at once.
+        t1 = time.perf_counter()
+        kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
+        meta_esc = torch.from_numpy(slot.meta).to(self.device, copy=True)
+        main_part = torch.from_numpy(slot.main[:4 * kt]) \
+            .to(self.device, copy=True)
+        flags = slot.views["flags"].copy()
+        slot.evt.set()
+        self._carry, disps = self._decode(self._carry, meta_esc, main_part,
+                                          flags)
+        if self.stats is not None:
+            self.stats.record_window(
+                int(np.count_nonzero(types)),
+                meta_esc.numel() + main_part.numel(), t_parse,
+                time.perf_counter() - t1)
+
+        out = []
+        for s in range(self.n):
+            frames = []
+            for w in range(self.window):
+                t = int(types[s, w])
+                if t == 0:
+                    continue
+                self._last_type[s] = t
+                if t == PICTURE_TYPE_B:
+                    frames.append(disps[s, w])
+                elif self._has_ref[s]:
+                    frames.append(disps[s, w])
+                else:
+                    self._has_ref[s] = True
+            out.append(frames)
+        return out
