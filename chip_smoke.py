@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`mpeg_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--k1-baseline RECON_CU]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
-and holds each against its plain PyTorch version on the card at 1080p
-(K1 one picture and 64 streams in one launch, K2, K3), then drives every
-path of the port and checks its output:
+(and the C++ host parser with g++, at the same time) and holds each
+kernel against its plain PyTorch version on the card at 1080p (K1 on
+adversarial plans, one picture and 64 streams in one launch, and on the
+1080p fixture's 32 pictures in decode order; K2; K3), each timed beside
+its byte bound, then drives every path of the port and checks its
+output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
   device="cuda")` against their golden hashes;
@@ -18,6 +21,17 @@ path of the port and checks its output:
 - `multistream_1080p`: 64 streams of the 1080p fixture, window 2, every
   frame against the C++ host decoder, then timed and profiled;
 - `rgba`: the 1080p fixture with `emit_rgba=True` against numpy.
+
+`--k1-baseline` (which may be repeated) also builds K1 from another copy
+of `recon.cu` (an earlier commit's, or an edited copy with another ring
+depth or CTAs a SM) and times it and this K1 in turns (baseline, this,
+this, baseline) on the fixture's pictures, the adversarial plan and
+64-stream launches.
+
+Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
+plain version's `plain_ms` is the wall of back-to-back calls by CUDA
+events (`cuda_ms`), its own host waits included.  torch.profiler only
+measures the two profiled decode passes' idle share.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after.  Every phase prints one JSON line; any failure raises,
@@ -56,11 +70,16 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# How the kernels line's times were taken (copied into each row).
+TIMED_BY = {"ms": "cuda_events_queued", "plain_ms": "cuda_events_wall"}
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of `fn` on the current stream, by CUDA
     events around `iters` back-to-back calls after one warm-up call.  Where
-    the host issues calls slower than the card runs them, this is the
-    host's rate, not the card's."""
+    the host issues calls slower than the card runs them, or `fn` waits
+    for the card, this is the host's rate, not the card's: the plain
+    versions are timed so."""
     import torch
 
     fn()
@@ -75,34 +94,32 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int) -> tuple[float, list]:
-    """(device milliseconds per call of `fn`, the top device activities
-    as [microseconds per call, name]): the card's kernels and copies as
-    torch.profiler records them over `iters` calls, after one warm-up."""
+def queued_ms(fn, iters: int) -> float:
+    """Milliseconds of card time per call of `fn`, by CUDA events around
+    `iters` calls that the card runs back to back: a spin kernel
+    (torch.cuda._sleep) holds the stream while the host queues them all,
+    so the host's launch cost does not enter the time (the launches'
+    gaps on the card do).  Every kernel time comes from here, not from
+    torch.profiler, which on the card's machine records nothing at all
+    in some sessions and drops records of short launches in others."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, top = device_activities(prof, iters)
-    return total_us / 1e3, top
-
-
-def device_activities(prof, per: int = 1) -> tuple[float, list]:
-    """(total device microseconds / per, the top five device activities
-    as [microseconds / per, name]) from a finished torch.profiler run."""
-    dev = sorted(((k.device_time_total / per, k.key)
-                  for k in prof.key_averages()
-                  if k.device_type.name == "CUDA"), reverse=True)
-    total_us = sum(us for us, _ in dev)
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us, [[us, name[:80]] for us, name in dev[:5]]
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Spin for twice the host's queueing time at up to 2 GHz, +2 ms.
+    torch.cuda._sleep(int((2 * host_s * iters + 2e-3) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def phase_probe() -> dict:
@@ -115,18 +132,33 @@ def phase_probe() -> dict:
     return p
 
 
+def _ptxas_lines(log: str) -> list:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "Compiling entry" in ln
+            or "bytes stack frame" in ln]
+
+
 def phase_build() -> None:
+    """nvcc (the kernels) and g++ (the host parser) at the same time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpeg_tpu_torch import native
     from mpeg_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    so, log = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        kernels = pool.submit(_build.build)
+        parser = pool.submit(native.build)
+        so, log = kernels.result()
+        parser_so = parser.result()
     secs = time.perf_counter() - t0
-    _build.load()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln
-             or "bytes stack frame" in ln]
+    lib = _build.load()
+    native.load()
     emit({"phase": "build", "library": os.path.relpath(so, REPO),
-          "seconds": secs, "flags": _build.NVCC_FLAGS, "ptxas": ptxas})
+          "parser_library": os.path.relpath(parser_so, REPO),
+          "seconds": secs, "flags": _build.NVCC_FLAGS,
+          "ptxas": _ptxas_lines(log),
+          "k1_dynamic_smem_bytes": lib.mt_reconstruct_smem_bytes()})
 
 
 def _max_abs_err(got, want) -> int:
@@ -142,9 +174,9 @@ def phase_kernel_parity(seed: int) -> dict:
     import numpy as np
     import torch
 
-    from mpeg_tpu.ops.video_recon import FrameGeometry
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.ops import video_recon as plain
+    from mpeg_tpu_torch.ops.video_recon import FrameGeometry
     from mpeg_tpu_torch.testing import plan_args, random_blocks, random_plan
 
     dev = torch.device("cuda")
@@ -179,6 +211,13 @@ def phase_kernel_parity(seed: int) -> dict:
         check("k2", cuda_kernels.idct_batch(coeffs, nblocks),
               plain.idct_batch(coeffs, nblocks), f"trial {trial}")
         cur, fwd, bwd = new, bwd, cur      # evolve state across trials
+    # Uncoded blocks whose coefficients are junk: K1 must not read them.
+    args = list(plan_args(random_plan(geom, rng, 2), dev))
+    uncoded = torch.from_numpy(rng.random(tuple(args[1].shape)) < 0.7)
+    args[1] = torch.where(uncoded.to(dev), 0, args[1])
+    check("k1", cuda_kernels.reconstruct_picture(cur, fwd, bwd, *args, geom),
+          plain.reconstruct_picture(cur, fwd, bwd, *args, geom),
+          "junk coefficients in uncoded blocks")
     # Exact-variant coverage: sparse blocks of every class, and a batch
     # that ends in a part-filled CTA (16,376 blocks, 32 a CTA).
     c, n = (torch.from_numpy(a).to(dev) for a in random_blocks(
@@ -197,23 +236,26 @@ def phase_kernel_parity(seed: int) -> dict:
         plan_args(random_plan(geom, rng, 1 + s % 2), dev)
         for s in range(s_n)))]
     perm = rng.permutation(s_n)
-    table = torch.tensor(
-        [[4 * s, 4 * s + (2 if s % 3 == 0 else 1), 4 * s + 2, 4 * s + 3,
-          int(perm[s])] for s in range(s_n)], dtype=torch.int32, device=dev)
+    rows = [[4 * s, 4 * s + (2 if s % 3 == 0 else 1), 4 * s + 2, 4 * s + 3,
+             int(perm[s])] for s in range(s_n)]
+    for s in (5, 40):              # two no-op streams in the parity launch
+        rows[s][4] = -1
+    table = torch.tensor(rows, dtype=torch.int32, device=dev)
     before = pool.clone()
     cuda_kernels.reconstruct_pictures(pool, table, *plans, geom)
     want = plain.reconstruct_pictures(before.clone(), table, *plans, geom)
     check("k1", pool, want, "64 streams against the plain version")
-    for c_, f_, b_, o_, pic in table.tolist():
+    for c_, f_, b_, o_, pic in rows:
+        if pic < 0:
+            check("k1", pool[o_], before[o_], "a no-op stream's out slot")
+            continue
         check("k1", pool[o_], cuda_kernels.reconstruct_picture(
             before[c_], before[f_], before[b_],
             *(a[pic] for a in plans), geom), f"stream of picture {pic}")
+    table[:, 4] = torch.from_numpy(perm).to(dev, torch.int32)   # timed: all
 
     # Timing at the main path's shapes: one 1080p picture, and one
-    # picture-step of 64 streams (per picture: / 64).  `*_ms` is the
-    # card's time per call (torch.profiler), `*_wall_ms` the time per
-    # call of back-to-back calls (CUDA events), which the host's launch
-    # cost bounds where it exceeds the card's.
+    # picture-step of 64 streams (per picture: / 64), as TIMED_BY says.
     args = plan_args(random_plan(geom, rng, 2), dev)
     coeffs, nblocks = args[0].view(-1, 64), args[1].view(-1)
     fns = {
@@ -234,10 +276,22 @@ def phase_kernel_parity(seed: int) -> dict:
     }
     t = {}
     for name, (fn, iters, per) in fns.items():
-        ms, top = device_profile(fn, iters)
-        t[f"{name}_ms"] = ms / per
-        t[f"{name}_top_us"] = [[us / per, k] for us, k in top]
-        t[f"{name}_wall_ms"] = cuda_ms(fn, iters) / per
+        timer = cuda_ms if name.endswith("_plain") else queued_ms
+        t[f"{name}_ms"] = timer(fn, iters) / per
+    # The floor of this timing: K2 on 32 zero blocks, one CTA.
+    c1, n1 = (torch.zeros(s, dtype=torch.int32, device=dev)
+              for s in ((32, 64), (32,)))
+    t["launch_floor_ms"] = queued_ms(lambda: cuda_kernels.idct_batch(c1, n1),
+                                     200)
+    # Bounds from these inputs (each input byte read once, each output
+    # byte written once, at 3.35 TB/s): K1 and K3 compute one function.
+    bound = cuda_kernels.reconstruct_bound(args[1], args[2], geom)
+    streams_bound = cuda_kernels.reconstruct_bound(plans[1], plans[2], geom)
+    n_blk = int(nblocks.numel())
+    t["k1_bound_ms"] = t["k3_bound_ms"] = bound["us"] / 1e3
+    t["k1_streams_bound_ms"] = streams_bound["us"] / 1e3 / s_n
+    t["k2_bound_ms"] = n_blk * (256 + 4 + 256) \
+        / cuda_kernels.HBM_BYTES_PER_S * 1e3
     out = {"phase": "kernel_parity", "geometry": "1920x1080",
            "mb": geom.mb_size, "blocks": int(nblocks.numel()),
            "streams": s_n, "k1_equal": True, "k1_max_abs_err": errs["k1"],
@@ -252,9 +306,220 @@ def _fixture_1080p() -> bytes:
     return open(os.path.join(TESTDATA, "test1080.m1v"), "rb").read()
 
 
+def _fixture_pictures(dev) -> list:
+    """The 1080p fixture's pictures in decode order, as K1 gets them in
+    the decode: [(cur, fwd, bwd, plan tensors)], the frames K1's own
+    outputs, each picture held against the plain version on the way."""
+    import torch
+
+    from mpeg_tpu_torch.native import NativeVideoParser
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.ops import video_recon as plain
+    from mpeg_tpu_torch.tables import PICTURE_TYPE_B
+    from mpeg_tpu_torch.testing import plan_args
+
+    parser = NativeVideoParser(_fixture_1080p())
+    geom = parser.geom()
+    cur, fwd, bwd = (torch.zeros(geom.total_size, dtype=torch.uint8,
+                                 device=dev) for _ in range(3))
+    pictures = []
+    while (item := parser.parse_next_plan()) is not None:
+        plan, ptype = item
+        args = plan_args(plan, dev)
+        is_ref = ptype != PICTURE_TYPE_B
+        fwd_eff = bwd if is_ref else fwd
+        new = cuda_kernels.reconstruct_picture(cur, fwd_eff, bwd, *args,
+                                               geom)
+        want = plain.reconstruct_picture(cur, fwd_eff, bwd, *args, geom)
+        torch.cuda.synchronize()
+        if not torch.equal(new, want):
+            fail(f"k1 differs from its plain version on fixture picture "
+                 f"{len(pictures)}")
+        pictures.append((cur, fwd_eff, bwd, args, ptype))
+        if is_ref:
+            cur, fwd, bwd = fwd, bwd, new
+        else:
+            cur = new
+    if len(pictures) != 32:
+        fail(f"the 1080p fixture parsed into {len(pictures)} pictures")
+    return geom, pictures
+
+
+def phase_k1_fixture(baselines: list) -> dict:
+    """K1 on the 1080p fixture's 32 pictures in decode order (each byte
+    equal to the plain version), timed in turn (32 launches a call, so
+    each picture finds its coefficients outside the 50 MB L2) beside
+    each picture's bound.  K1 built from each source of `baselines` is
+    timed in turns with this one on the fixture, the adversarial plan and
+    64-stream launches."""
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.ops import video_recon as plain
+
+    dev = torch.device("cuda")
+    geom, pics = _fixture_pictures(dev)
+    bounds = [cuda_kernels.reconstruct_bound(a[1], a[2], geom)
+              for _, _, _, a, _ in pics]
+    by_type = {}
+    for (_, _, _, _, ptype), b in zip(pics, bounds):
+        by_type.setdefault({1: "I", 2: "P", 3: "B"}[ptype], []) \
+            .append(b["us"])
+    run = lambda: [cuda_kernels.reconstruct_picture(  # noqa: E731
+        c, f, b, *a, geom) for c, f, b, a, _ in pics]
+    run_plain = lambda: [plain.reconstruct_picture(  # noqa: E731
+        c, f, b, *a, geom) for c, f, b, a, _ in pics]
+    ms = queued_ms(run, 5)
+    plain_ms = cuda_ms(run_plain, 1)
+    n = len(pics)
+    bound_ms = sum(b["us"] for b in bounds) / n / 1e3
+    out = {"phase": "k1_fixture", "pictures": n,
+           "types": "".join({1: "I", 2: "P", 3: "B"}[p]
+                            for *_, p in pics),
+           "equal": True, "unit": "ms per 1080p picture",
+           "k1_ms": ms / n, "k1_plain_ms": plain_ms / n,
+           "bound_ms": bound_ms, "bound_share": bound_ms / (ms / n),
+           "bound_us_by_type": {k: [min(v), statistics.mean(v), max(v)]
+                                for k, v in by_type.items()},
+           "coded_blocks": [int((a[1] > 0).sum()) for _, _, _, a, _ in pics]}
+    for label, t in (("I", 1), ("P", 2)):
+        sub = [p for p in pics if p[4] == t]
+        out[f"k1_{label}_ms"] = queued_ms(lambda: [  # noqa: B023
+            cuda_kernels.reconstruct_picture(c, f, b, *a, geom)
+            for c, f, b, a, _ in sub], 5) / len(sub)
+    if baselines:
+        out["turns"] = {src: _k1_turns(src, geom, pics)
+                        for src in baselines}
+    emit(out)
+    return out
+
+
+def _k1_turns(source: str, geom, pics) -> dict:
+    """K1 from `source` ("baseline") and this K1 ("this"), in turns
+    baseline, this, this, baseline (twice): card ms per 1080p picture
+    (`queued_ms`) on the fixture's pictures (cold), one adversarial plan
+    repeated (warm) and 64-stream launches, the median of each, beside
+    each case's bound; the baseline's outputs equal this K1's.  The
+    64-stream launch runs three times: adversarial plans, streams in
+    order with distinct slots ("streams_64"); as `kernel_parity` times
+    it, each stream reading a permuted picture and every third a
+    reference step whose forward aliases backward ("streams_64_perm");
+    and the fixture's plans, stream s taking picture 7s mod 32, as the
+    64-stream decode launches K1 on real pictures
+    ("streams_64_fixture")."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.ops import _build, cuda_kernels
+    from mpeg_tpu_torch.testing import plan_args, random_plan
+
+    so, log = _build.build(os.path.abspath(source))
+    lib = _build.bind(so)
+    dev = torch.device("cuda")
+
+    def base_k1(pool, table, n, cur, fwd, bwd, out, args):
+        code = lib.mt_reconstruct_pictures(
+            cur.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), out.data_ptr(),
+            None if table is None else table.data_ptr(), n,
+            *(a.data_ptr() for a in args), geom.mb_width, geom.mb_height,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"baseline K1: CUDA error {code}")
+
+    def base_one(c, f, b, args):
+        out = torch.empty_like(c)
+        base_k1(None, None, 1, c, f, b, out, args)
+        return out
+
+    rng = np.random.default_rng(1)
+    frame = lambda: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 256, geom.total_size).astype(np.uint8)).to(dev)
+    cur, fwd, bwd = frame(), frame(), frame()
+    adv = plan_args(random_plan(geom, rng, 2), dev)
+    s_n = N_STREAMS
+    pool = torch.from_numpy(rng.integers(0, 256, (4 * s_n, geom.total_size))
+                            .astype(np.uint8)).to(dev)
+    plans = [torch.stack(a) for a in zip(*(
+        plan_args(random_plan(geom, rng, 1 + s % 2), dev)
+        for s in range(s_n)))]
+    table = torch.tensor([[4 * s, 4 * s + 1, 4 * s + 2, 4 * s + 3, s]
+                          for s in range(s_n)], dtype=torch.int32,
+                         device=dev)
+    perm = rng.permutation(s_n)
+    table_perm = torch.tensor(
+        [[4 * s, 4 * s + (2 if s % 3 == 0 else 1), 4 * s + 2, 4 * s + 3,
+          int(perm[s])] for s in range(s_n)], dtype=torch.int32, device=dev)
+    plans_fix = [torch.stack(x) for x in zip(*(p[3] for p in pics))]
+    table_fix = torch.tensor(
+        [[4 * s, 4 * s + 1, 4 * s + 2, 4 * s + 3, 7 * s % len(pics)]
+         for s in range(s_n)], dtype=torch.int32, device=dev)
+    for c, f, b, a, _ in pics[:3] + pics[-2:]:
+        if not torch.equal(base_one(c, f, b, a),
+                           cuda_kernels.reconstruct_picture(c, f, b, *a,
+                                                            geom)):
+            fail("baseline K1 and this K1 differ on a fixture picture")
+    got = pool.clone()
+    base_k1(got, table_fix, s_n, got, got, got, got, plans_fix)
+    if not torch.equal(got, cuda_kernels.reconstruct_pictures(
+            pool.clone(), table_fix, *plans_fix, geom)):
+        fail("baseline K1 and this K1 differ on 64 fixture streams")
+    del got
+    cases = {
+        "fixture_cold": (
+            lambda: [base_one(c, f, b, a) for c, f, b, a, _ in pics],
+            lambda: [cuda_kernels.reconstruct_picture(c, f, b, *a, geom)
+                     for c, f, b, a, _ in pics], 5, len(pics)),
+        "adversarial_warm": (
+            lambda: base_one(cur, fwd, bwd, adv),
+            lambda: cuda_kernels.reconstruct_picture(cur, fwd, bwd, *adv,
+                                                     geom), 200, 1),
+        "streams_64": (
+            lambda: base_k1(pool, table, s_n, pool, pool, pool, pool,
+                            plans),
+            lambda: cuda_kernels.reconstruct_pictures(pool, table, *plans,
+                                                      geom), 10, s_n),
+        "streams_64_perm": (
+            lambda: base_k1(pool, table_perm, s_n, pool, pool, pool, pool,
+                            plans),
+            lambda: cuda_kernels.reconstruct_pictures(pool, table_perm,
+                                                      *plans, geom), 10, s_n),
+        "streams_64_fixture": (
+            lambda: base_k1(pool, table_fix, s_n, pool, pool, pool, pool,
+                            plans_fix),
+            lambda: cuda_kernels.reconstruct_pictures(pool, table_fix,
+                                                      *plans_fix, geom),
+            10, s_n),
+    }
+    # Each case's bound a picture (`cuda_kernels.reconstruct_bound`).
+    bound = lambda nb, ib, n: cuda_kernels.reconstruct_bound(  # noqa: E731
+        nb, ib, geom)["us"] / 1e3 / n
+    fix_pics = table_fix[:, 4].long()
+    bounds = {
+        "fixture_cold": sum(bound(a[1], a[2], 1) for *_, a, _ in pics)
+        / len(pics),
+        "adversarial_warm": bound(adv[1], adv[2], 1),
+        "streams_64": bound(plans[1], plans[2], s_n),
+        "streams_64_perm": bound(plans[1], plans[2], s_n),
+        "streams_64_fixture": bound(plans_fix[1][fix_pics],
+                                    plans_fix[2][fix_pics], s_n),
+    }
+    res = {}
+    for name, (fb, ft, iters, per) in cases.items():
+        got = {"baseline": [], "this": []}
+        for _ in range(2):
+            for who in ("baseline", "this", "this", "baseline"):
+                fn = fb if who == "baseline" else ft
+                got[who].append(queued_ms(fn, iters) / per)
+        res[name] = {k: {"ms": statistics.median(v), "all_ms": v}
+                     for k, v in got.items()}
+        res[name]["bound_ms"] = bounds[name]
+    res["baseline_ptxas"] = _ptxas_lines(log)
+    return res
+
+
 def _native_frames(data: bytes) -> list:
     """Every displayed frame of `data` from the C++ host decoder."""
-    from mpeg_tpu.native import NativeHostDecoder
+    from mpeg_tpu_torch.native import NativeHostDecoder
 
     ref = NativeHostDecoder(data)
     frames = []
@@ -267,7 +532,11 @@ def profiled_pass(run, wall_median: float) -> dict:
     """One more pass of `run` under torch.profiler: how busy the card is
     and what fills it (rates are taken without the profiler).  The idle
     share is given against the profiled wall and against the unprofiled
-    median wall, which the profiler does not slow down."""
+    median wall, which the profiler does not slow down.  In some sessions
+    on the card's machine the profiler records no device activity at
+    all: the pass then reports its wall and `"device_recorded": false`,
+    and no idle share (its frames are checked elsewhere); `main` says so
+    in its `idle_share` line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,8 +546,14 @@ def profiled_pass(run, wall_median: float) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us, top = device_activities(prof)
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+    dev = sorted(((k.device_time_total, k.key) for k in prof.key_averages()
+                  if k.device_type.name == "CUDA"), reverse=True)
+    busy_us = sum(us for us, _ in dev)
+    if busy_us <= 0:
+        return {"wall_s": wall, "device_recorded": False}
+    top = [[us, name[:80]] for us, name in dev[:5]]
+    return {"wall_s": wall, "device_recorded": True,
+            "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall,
             "device_idle_share_unprofiled_wall":
                 1 - busy_us / 1e6 / wall_median,
@@ -300,7 +575,7 @@ def _check_against_host(frames, want, fs: int, what: str) -> None:
 
 
 def _digest(frames, geom) -> int:
-    from mpeg_tpu.utils import Fnv1a64
+    from mpeg_tpu_torch.utils import Fnv1a64
 
     h = Fnv1a64()
     for f in frames:
@@ -331,7 +606,7 @@ def phase_e2e_1080p() -> dict:
     untimed warm-up pass of each."""
     import torch
 
-    from mpeg_tpu.utils.profiling import DecodeStats
+    from mpeg_tpu_torch.utils.profiling import DecodeStats
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
@@ -476,7 +751,7 @@ def phase_multistream_1080p() -> dict:
     of each; then one profiled pass."""
     import torch
 
-    from mpeg_tpu.utils.profiling import DecodeStats
+    from mpeg_tpu_torch.utils.profiling import DecodeStats
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import MultiStreamVideoDecoder
@@ -547,12 +822,37 @@ def phase_multistream_1080p() -> dict:
     return out
 
 
+def _rgba_numpy(flat, geom):
+    """RGBA [H, W, 4] of a flat frame in numpy, as Go's
+    image/color.YCbCrToRGB computes it (4:2:0, each chroma sample over a
+    2x2 luma block; alpha 255): this script's own formulation, apart
+    from the port's torch one."""
+    import numpy as np
+
+    h, w = geom.height, geom.width
+    cb0, cr0 = geom.luma_size, geom.luma_size + geom.chroma_size
+    y = flat[:cb0].reshape(geom.luma_height, geom.luma_width)[:h, :w]
+    up = lambda p: np.repeat(np.repeat(  # noqa: E731
+        p.reshape(geom.chroma_height, geom.chroma_width), 2, 0), 2, 1)[:h, :w]
+    cb, cr = up(flat[cb0:cr0]), up(flat[cr0:geom.frame_size])
+    yy1 = y.astype(np.int32) * 0x10101
+    cb1, cr1 = cb.astype(np.int32) - 128, cr.astype(np.int32) - 128
+
+    def squash(c):   # Go: uint32(c)&0xff000000 == 0 ? c >> 16 : ^(c>>31)
+        keep = (c.astype(np.uint32) & np.uint32(0xFF000000)) == 0
+        return np.where(keep, c >> 16, ~(c >> 31) & 0xFFFF).astype(np.uint8)
+
+    r = squash(yy1 + 91881 * cr1)
+    g = squash(yy1 - 22554 * cb1 - 46802 * cr1)
+    b = squash(yy1 + 116130 * cb1)
+    return np.stack([r, g, b, np.full_like(r, 255)], axis=-1)
+
+
 def phase_rgba() -> None:
     """The 1080p fixture with emit_rgba=True: every frame equal to the
     numpy RGBA of the C++ host decoder's frame."""
     import numpy as np
 
-    from mpeg_tpu.ops.color import flat_frame_to_rgba
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
     data = _fixture_1080p()
@@ -563,7 +863,7 @@ def phase_rgba() -> None:
         fail(f"rgba: {len(frames)} frames, host decoder {len(want)}")
     for i, (a, b) in enumerate(zip(frames, want)):
         if a.shape != (1080, 1920, 4) or not np.array_equal(
-                a.cpu().numpy(), flat_frame_to_rgba(b, dec.geom, np)):
+                a.cpu().numpy(), _rgba_numpy(b, dec.geom)):
             fail(f"rgba frame {i} differs from numpy")
     emit({"phase": "rgba", "frames": len(frames), "shape": [1080, 1920, 4],
           "equal_to_numpy": True})
@@ -573,6 +873,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel inputs")
+    ap.add_argument("--k1-baseline", metavar="RECON_CU", action="append",
+                    default=[],
+                    help="also time K1 built from this copy of recon.cu "
+                         "in turns with this K1 (may be repeated)")
     args = ap.parse_args()
 
     import torch
@@ -589,33 +893,52 @@ def main() -> int:
     phase_probe()
     phase_build()
     parity = phase_kernel_parity(args.seed)
+    fixture = phase_k1_fixture(args.k1_baseline)
     phase_golden()
-    phase_e2e_1080p()
+    e2e = phase_e2e_1080p()
     multi = phase_recon_multi_1080p()
     phase_multistream_golden()
     streams = phase_multistream_1080p()
     phase_rgba()
+    # The two decodes' idle share, or that the profiler recorded nothing.
+    emit({"idle_share": {
+        name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
+               if out["profiled_pass"]["device_recorded"] else
+               "not measured: torch.profiler recorded no device activity")
+        for name, out in (("e2e_1080p", e2e), ("multistream_1080p",
+                                               streams))}})
 
     src, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
+
+    def row(name, replaces, launches, err, ms, plain_ms, bound_ms, **more):
+        # library_ms: no PyTorch call computes these functions (the exact
+        # IDCT rounds between its passes; no single op does MC + compose).
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": f"{pk}:{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+                "bound_by": "bytes", "library_ms": None, **more,
+                "timed_by": TIMED_BY}
+
     emit({"kernels": [
-        # K1's launches: the 64-stream path (stream-batched K1); its times
-        # per 1080p picture of one 64-stream launch.
-        {"name": "reconstruct_picture", "route": "cuda", "source": src,
-         "replaces": f"{pk}:520",
-         "launches": streams["launches"]["reconstruct_picture"],
-         "max_abs_err": parity["k1_max_abs_err"],
-         "ms": parity["k1_streams_ms"],
-         "plain_ms": parity["k1_streams_plain_ms"]},
-        {"name": "idct_batch", "route": "cuda", "source": src,
-         "replaces": f"{pk}:93",
-         "launches": multi["launches"]["idct_batch"],
-         "max_abs_err": parity["k2_max_abs_err"],
-         "ms": parity["k2_ms"], "plain_ms": parity["k2_plain_ms"]},
-        {"name": "reconstruct_picture_multi", "route": "cuda",
-         "source": src, "replaces": f"{pk}:246",
-         "launches": multi["launches"]["reconstruct_picture_multi"],
-         "max_abs_err": parity["k3_max_abs_err"],
-         "ms": parity["k3_ms"], "plain_ms": parity["k3_plain_ms"]},
+        # K1: launches on the 64-stream path (the stream-batched K1); its
+        # time per 1080p picture of one 64-stream launch of adversarial
+        # plans (the main path's launch), the fixture's pictures in decode
+        # order (the main path's inputs) beside it.
+        row("reconstruct_picture", 520,
+            streams["launches"]["reconstruct_picture"],
+            parity["k1_max_abs_err"], parity["k1_streams_ms"],
+            parity["k1_streams_plain_ms"], parity["k1_streams_bound_ms"],
+            fixture_ms=fixture["k1_ms"],
+            fixture_plain_ms=fixture["k1_plain_ms"],
+            fixture_bound_ms=fixture["bound_ms"]),
+        row("idct_batch", 93, multi["launches"]["idct_batch"],
+            parity["k2_max_abs_err"], parity["k2_ms"],
+            parity["k2_plain_ms"], parity["k2_bound_ms"]),
+        row("reconstruct_picture_multi", 246,
+            multi["launches"]["reconstruct_picture_multi"],
+            parity["k3_max_abs_err"], parity["k3_ms"],
+            parity["k3_plain_ms"], parity["k3_bound_ms"]),
     ]})
     smi = gpu_name_and_power_limit()
     if not smi:

@@ -8,10 +8,12 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """The torch.device for an explicit `device` argument.
+    """The torch.device for a `device` argument ("cuda", the entry points'
+    default, or "cpu").
 
-    Nothing picks a device by itself: None is refused, and "cuda" raises
-    when no CUDA device is present instead of running on the CPU."""
+    Nothing falls back to another device: None is refused, and "cuda"
+    raises when no CUDA device is present instead of running on the
+    CPU."""
     if device is None:
         raise TypeError("device is required (\"cuda\" or \"cpu\")")
     dev = torch.device(device)

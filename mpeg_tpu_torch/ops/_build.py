@@ -36,8 +36,9 @@ def nvcc_path() -> str | None:
     return nvcc if os.path.exists(nvcc) else None
 
 
-def build() -> tuple[str, str]:
-    """Compile recon.cu if its digest has no library yet.
+def build(source: str = SOURCE) -> tuple[str, str]:
+    """Compile `source` (recon.cu, or an earlier commit's copy of it to
+    time against) if its digest has no library yet.
 
     Returns (library path, the compiler's log: the -Xptxas -v register
     and shared-memory lines)."""
@@ -45,7 +46,7 @@ def build() -> tuple[str, str]:
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
                            "built (CUDA tensors need them)")
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
@@ -54,7 +55,7 @@ def build() -> tuple[str, str]:
     log = so + ".log"
     if not os.path.exists(so):
         tmp = so + f".tmp{os.getpid()}"
-        out = subprocess.run([nvcc, *NVCC_FLAGS, SOURCE, "-o", tmp],
+        out = subprocess.run([nvcc, *NVCC_FLAGS, source, "-o", tmp],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
@@ -69,9 +70,13 @@ def build() -> tuple[str, str]:
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first use."""
     global _lib
-    if _lib is not None:
-        return _lib
-    so, _ = build()
+    if _lib is None:
+        _lib = bind(build()[0])
+    return _lib
+
+
+def bind(so: str) -> ctypes.CDLL:
+    """A built library with its entry points' argument types set."""
     lib = ctypes.CDLL(so)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mt_idct_batch.argtypes = [p, p, p, i64, p]
@@ -83,7 +88,6 @@ def load() -> ctypes.CDLL:
     lib.mt_reconstruct_plane.restype = i32
     lib.mt_error_string.argtypes = [i32]
     lib.mt_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
 
 

@@ -12,6 +12,11 @@ a run can show that its main path went through the kernel.
   it.  `reconstruct_pictures` launches the same kernel over one
   picture-step of many streams in a frame pool (the many-stream decode's
   stream axis); its launches count in `reconstruct_picture.launches`.
+  K1 copies frames and coefficients in 16-byte granules: the wrappers
+  refuse frames and coefficients that do not start 16-byte aligned
+  (every tensor torch allocates does) and block counts and intra flags
+  that do not start 8-byte aligned.  `reconstruct_bound` gives the least
+  bytes and time a K1 call needs for its plans.
 - `idct_batch` (K2): the standalone batched IDCT.  Replaces
   `idct_batch_pallas`; K1 runs the same device function fused.
 - `reconstruct_picture_multi` (K3): K2, then two plane launches, one for
@@ -27,7 +32,8 @@ from . import video_recon
 from .video_recon import FrameGeometry
 
 _TABLE_COLS = 5         # cur, fwd, bwd, out slot; picture index
-_MAX_STREAMS = 65535    # gridDim.y
+_MAX_STREAMS = 65535
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 
 
 def _check(name, t, dtype, shape, device):
@@ -51,6 +57,43 @@ def _check_plan(geom, dev, coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v,
     _check_int32("intra_blk", intra_blk, (*lead, mb, 6), dev)
     for name, t in (("src_sel", src_sel), ("mv_h", mv_h), ("mv_v", mv_v)):
         _check_int32(name, t, (*lead, mb), dev)
+
+
+def _check_aligned(name, t, align: int):
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: K1 needs its data {align}-byte aligned "
+                         f"(data_ptr {t.data_ptr():#x})")
+
+
+def _check_k1_alignment(frames: dict, coeffs, nblocks, intra_blk):
+    for name, t in frames.items():
+        _check_aligned(name, t, 16)
+    _check_aligned("coeffs", coeffs, 16)
+    _check_aligned("nblocks", nblocks, 8)
+    _check_aligned("intra_blk", intra_blk, 8)
+
+
+def reconstruct_bound(nblocks, intra_blk, geom: FrameGeometry) -> dict:
+    """The least device-memory traffic of reconstructing the pictures of
+    these plans (any leading axes before [mb, 6]), each input byte read
+    once and each output byte written once: 256 B of coefficients for
+    each coded block (nblocks > 0), 64 B of prediction for each block
+    that is not coded intra (from the current frame where src_sel is 0,
+    else from a reference: src_sel picks the frame, not the byte count),
+    60 B of plan a macroblock (nblocks, intra_blk, src_sel, mv_h, mv_v),
+    and a written frame of total_size bytes with its pad of
+    total_size - frame_size bytes read from the current frame.  Returns
+    {"bytes", "us"}, "us" the bytes over `HBM_BYTES_PER_S`; the integer
+    work (~600 ops an IDCT block) is far below the card's rate, so
+    bytes bound it."""
+    coded = nblocks > 0
+    n_coded = int(coded.sum())
+    n_predicted = int((~(coded & (intra_blk > 0))).sum())
+    pictures = nblocks.numel() // (6 * geom.mb_size)
+    frame = geom.total_size + (geom.total_size - geom.frame_size)
+    nbytes = (256 * n_coded + 64 * n_predicted
+              + pictures * (60 * geom.mb_size + frame))
+    return {"bytes": nbytes, "us": nbytes / HBM_BYTES_PER_S * 1e6}
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -113,6 +156,8 @@ def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
     _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
     _check_plan(geom, dev, *plan)
     out = torch.empty_like(cur_flat)
+    _check_k1_alignment({"cur": cur_flat, "fwd": fwd_flat, "bwd": bwd_flat,
+                         "out": out}, coeffs, nblocks, intra_blk)
     lib = _build.load()
     with torch.cuda.device(dev):
         code = lib.mt_reconstruct_pictures(
@@ -150,6 +195,7 @@ def reconstruct_pictures(pool, table, coeffs, nblocks, intra_blk, src_sel,
     if not 0 < n <= _MAX_STREAMS:
         raise ValueError(f"table: 1 to {_MAX_STREAMS} streams, got {n}")
     _check_plan(geom, dev, *plan, lead=(coeffs.shape[0],))
+    _check_k1_alignment({"pool": pool}, coeffs, nblocks, intra_blk)
     lib = _build.load()
     with torch.cuda.device(dev):
         p = pool.data_ptr()

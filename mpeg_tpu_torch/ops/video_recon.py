@@ -14,23 +14,119 @@ half-pel read past a plane edge lands in the next plane's bytes.
 
 from __future__ import annotations
 
-import torch
+from dataclasses import dataclass
 
-# Framework-neutral pieces of the reference: the geometry dataclass and
-# the 8-point butterflies (pure operator arithmetic on whatever array type
-# they are given).  Importing them pulls in no jax.
-from mpeg_tpu.ops.video_recon import (
-    FrameGeometry, _pass_full, _pass_sparse, _trunc_div2,
-)
+import torch
 
 __all__ = ["FrameGeometry", "idct_batch", "mb_window_starts",
            "reconstruct_picture", "reconstruct_picture_multi",
            "reconstruct_pictures", "reconstruct_plane"]
 
 
+@dataclass(frozen=True)
+class FrameGeometry:
+    """Static per-sequence layout (reference: mpeg_tpu/ops/video_recon.py
+    FrameGeometry; parity: video.go:314-326, 333-372)."""
+
+    width: int
+    height: int
+    mb_width: int
+    mb_height: int
+
+    @property
+    def mb_size(self) -> int:
+        return self.mb_width * self.mb_height
+
+    @property
+    def luma_width(self) -> int:
+        return self.mb_width << 4
+
+    @property
+    def luma_height(self) -> int:
+        return self.mb_height << 4
+
+    @property
+    def chroma_width(self) -> int:
+        return self.mb_width << 3
+
+    @property
+    def chroma_height(self) -> int:
+        return self.mb_height << 3
+
+    @property
+    def luma_size(self) -> int:
+        return self.luma_width * self.luma_height
+
+    @property
+    def chroma_size(self) -> int:
+        return self.chroma_width * self.chroma_height
+
+    @property
+    def frame_size(self) -> int:
+        return self.luma_size + 2 * self.chroma_size
+
+    @property
+    def total_size(self) -> int:
+        # Shared padded buffer: 16 extra luma rows for edge overreads
+        # (video.go:338-340).
+        return self.frame_size + self.luma_width * 16
+
+    @classmethod
+    def for_size(cls, width: int, height: int) -> "FrameGeometry":
+        return cls(width, height, (width + 15) >> 4, (height + 15) >> 4)
+
+
 # --------------------------------------------------------------------------
 # Integer 8x8 IDCT (reference: mpeg_tpu/ops/video_recon.py:117-195)
 # --------------------------------------------------------------------------
+
+def _butterfly(b1, b3, b4, tmp1, tmp2, b6, m0, x2, final_shift):
+    """Shared 8-point core; x2 is the precomputed variant-specific term."""
+    b7 = tmp1 + tmp2
+    x4 = ((b6 * 473 - b4 * 196 + 128) >> 8) - b7
+    x0 = x4 - (((tmp1 - tmp2) * 362 + 128) >> 8)
+    x1 = m0 - b1
+    x3 = m0 + b1
+    y3 = x1 + x2
+    y4 = x3 + b3
+    y5 = x1 - x2
+    y6 = x3 - b3
+    y7 = -x0 - ((b4 * 473 + b6 * 196 + 128) >> 8)
+    outs = (b7 + y4, x4 + y3, y5 - x0, y6 - y7,
+            y6 + y7, x0 + y5, y3 - x4, y4 - b7)
+    if final_shift:
+        outs = tuple((o + 128) >> 8 for o in outs)
+    return outs
+
+
+def _pass_full(x, final_shift):
+    """Full 8-point transform; x is a tuple of 8 tensors."""
+    b1 = x[4]
+    b3 = x[2] + x[6]
+    b4 = x[5] - x[3]
+    tmp1 = x[1] + x[7]
+    tmp2 = x[3] + x[5]
+    b6 = x[1] - x[7]
+    m0 = x[0]
+    x2 = (((x[2] - x[6]) * 362 + 128) >> 8) - b3
+    return _butterfly(b1, b3, b4, tmp1, tmp2, b6, m0, x2, final_shift)
+
+
+def _pass_sparse(x, final_shift):
+    """Sparse variant: inputs 4..7 taken as zero (video.go:807-866)."""
+    b3 = x[2]
+    b4 = -x[3]
+    tmp1 = x[1]
+    tmp2 = x[3]
+    b6 = x[1]
+    m0 = x[0]
+    x2 = ((x[2] * 362 + 128) >> 8) - b3
+    return _butterfly(0, b3, b4, tmp1, tmp2, b6, m0, x2, final_shift)
+
+
+def _trunc_div2(v):
+    """Go-style integer division by 2, truncating toward zero."""
+    return (v + ((v >> 31) & 1)) >> 1
 
 def _idct2d(blocks: torch.Tensor, sparse: bool) -> torch.Tensor:
     """2-D IDCT over [..., 8, 8] int32 blocks, one exact variant."""

@@ -1,12 +1,11 @@
 """Many-stream lockstep video decode on a torch device through ONE global
 record chain.
 
-Port of the device half of `mpeg_tpu/parallel/multistream.py`.  The host
-half — the per-stream native parsers filling disjoint picture slots of
-one logical S*window-picture window blob, the recycled host slots, the
-prefetch thread, the per-stream reference delay and end-of-stream flush —
-is the JAX package's own, inherited by `MultiStreamVideoDecoder` below.
-Per round the device runs:
+Port of `mpeg_tpu/parallel/multistream.py`.  The host half is the port's
+own copy of the JAX package's: the per-stream native parsers filling
+disjoint picture slots of one logical S*window-picture window blob, the
+recycled host slots (`_Slot`), the prefetch thread, the per-stream
+reference delay and end-of-stream flush.  Per round the device runs:
 
 1. one `densify_split` over all S*window pictures (the delta chain runs
    across stream boundaries);
@@ -26,22 +25,23 @@ Per round the device runs:
 
 from __future__ import annotations
 
+import threading
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from mpeg_tpu.ops.video_recon import FrameGeometry
-from mpeg_tpu.parallel import multistream as _ref
-from mpeg_tpu.parallel.batch import _MIN_KM, pool_bucket
-from mpeg_tpu.tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
-
 from ..device import resolve_device
 from ..ops import cuda_kernels
 from ..ops.color import flat_frame_to_rgba
-from .batch import _NB_CLASS_REP, _PLAN_FIELDS, densify_split, \
-    unpack_blob_meta
+from ..ops.video_recon import FrameGeometry
+from ..tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
+from .batch import (
+    _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, blob_split,
+    densify_split, pool_bucket, split_views, unpack_blob_meta,
+)
 
 _SLOTS = 4   # pool frames a stream: current, forward, backward, free
 
@@ -143,7 +143,29 @@ class GlobalWindowDecoder(nn.Module):
         return (pool, slots), disps.transpose(0, 1)
 
 
-class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
+class _Slot:
+    """One recycled host buffer pair + its pad high-water marks
+    (reference: mpeg_tpu/parallel/multistream.py _Slot, without its device
+    gate: the port's h2d copies block, so a slot is free again once the
+    consumer hands it back)."""
+
+    __slots__ = ("meta", "main", "views", "types", "hwm", "evt")
+
+    def __init__(self, geom, gw, kmg, keg):
+        self.meta = np.empty(blob_split(geom, gw, kmg, keg), np.uint8)
+        self.main = np.empty(4 * kmg, np.uint8)
+        self.views = split_views(self.meta, self.main, geom, gw, kmg, keg)
+        self.types = np.empty(gw, np.int32)
+        self.hwm = (kmg, keg)   # fresh: pad the full capacity once
+        # Hand-back event: cleared when the filler hands the slot to the
+        # consumer, set by the consumer after its copies (or when it
+        # decides not to dispatch), so a prefetching filler never refills
+        # a slot the consumer still reads.
+        self.evt = threading.Event()
+        self.evt.set()
+
+
+class MultiStreamVideoDecoder:
     """Lockstep decoder for N independent video sources on one torch
     device.  Same per-stream output as
     `mpeg_tpu.parallel.MultiStreamVideoDecoder` (each stream equals its
@@ -151,20 +173,28 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
     [total_size] tensors on `device` (RGBA with `emit_rgba=True`:
     [H, W, 4]).
 
-    `device` is required ("cuda" or "cpu").  On "cuda" each time step of
-    a round is `chunks` launches of the stream-batched K1, S/chunks
-    streams each; on "cpu" the plain version runs.  `recon`: "auto" and
-    "pallas" run K1; "xla" has no counterpart in the port and raises on a
-    CUDA device (on the CPU every choice runs the plain version).
+    `sources` is a list of byte buffers (raw MPEG-1 ES or MPEG-PS,
+    sniffed per stream like BatchVideoDecoder).  decode_window() parses
+    `window` pictures from EVERY stream, reconstructs them, and returns a
+    list of per-stream display-frame lists ([] for a stream with no
+    output this round); it returns None when every stream is done.
+
+    `device` is "cuda" (the default; it raises when no CUDA device is
+    present) or "cpu".  On "cuda" each time step of a round is `chunks`
+    launches of the stream-batched K1, S/chunks streams each (default ~32
+    streams a chunk); on "cpu" the plain version runs.  `recon`: "auto"
+    and "pallas" run K1; "xla" has no counterpart in the port and raises
+    on a CUDA device (on the CPU every choice runs the plain version).
     `stats` (an optional `DecodeStats`) records per round the parse time
-    the round waited for, and the h2d copy and enqueue time.  The other
-    arguments are the reference decoder's.
+    the round waited for, and the h2d copy and enqueue time.
     """
 
-    def __init__(self, sources, window: int = 2, chunks: int = None,
-                 pool_buckets: tuple = None, emit_rgba: bool = False,
-                 recon: str = "auto", prefetch: bool = False, *, device,
-                 stats=None):
+    def __init__(self, sources: List[bytes], window: int = 2,
+                 chunks: int = None, pool_buckets: tuple = None,
+                 emit_rgba: bool = False, recon: str = "auto",
+                 prefetch: bool = False, *, device="cuda", stats=None):
+        from .. import native as native_mod
+
         self.device = resolve_device(device)
         if recon not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown recon {recon!r}")
@@ -174,16 +204,69 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
                              "CUDA kernel")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        # The reference asserts the global dense span from `window`; with
-        # window 0 its assert holds, and the ValueError below replaces it.
-        super().__init__(sources, 0, chunks, pool_buckets, emit_rgba, recon,
-                         prefetch)
+        if not native_mod.available():
+            raise RuntimeError("MultiStreamVideoDecoder needs the native "
+                               "parser (global-chain fills are a native-"
+                               "window-ABI feature)")
+        if not sources:
+            raise ValueError("need at least one source")
+        self.n = len(sources)
         self.window = window
+        self.emit_rgba = emit_rgba
+        self.parsers = []
+        for data in sources:
+            data = bytes(data)
+            p = native_mod.NativePipeline() \
+                if data[:4] == b"\x00\x00\x01\xBA" \
+                else native_mod.NativeVideoParser()
+            p.feed(data)
+            p.signal_end()
+            if not p.has_header():
+                raise ValueError("source without a sequence header")
+            self.parsers.append(p)
+        self.geom = self.parsers[0].geom()
+        for p in self.parsers[1:]:
+            if p.geom() != self.geom:
+                raise ValueError("all sources must share one geometry")
+        if chunks is None:
+            # Smallest divisor of n whose chunks hold <= ~32 streams;
+            # awkward counts (primes > 32) fall back to ONE wide chunk
+            # — a single launch over all streams beats n serial chunks of
+            # one stream, which is what divisor-hunting would pick.
+            ok = [c for c in range(1, self.n + 1)
+                  if self.n % c == 0 and self.n // c <= 32]
+            chunks = min(ok)
+            if chunks > 1 and self.n // chunks < 8:
+                chunks = 1
+        else:
+            while self.n % chunks:
+                chunks += 1   # equal chunks
+        self.chunks = chunks
         span = self.n * window * self.geom.mb_size * 6 * 64
         if span >= 2 ** 31:
             raise ValueError(
                 f"global dense span {span} overflows the int32 index "
                 "cumsum; lower window or split the stream set")
+        km, ke = pool_buckets or (_MIN_KM, _MIN_KE)
+        self._kmg = pool_bucket(km, _MIN_KM)
+        self._keg = pool_bucket(max(ke, 1), _MIN_KE)
+        self._slots = None        # lazy: sized at first (possibly grown)
+        self._slot_i = 0
+        self._carry = None
+        self._decode = None
+        self._caps = None
+        # Per-stream display bookkeeping (reference-delay semantics).
+        self._has_ref = [False] * self.n
+        self._last_type = [0] * self.n
+        self._flushed = [False] * self.n
+        # prefetch: parse the next global window on a background thread
+        # while the device consumes the current one (the double-buffered
+        # slots let the producer run exactly one window ahead).
+        self._prefetch = prefetch
+        self._pf_queue = None
+        self._pf_thread = None
+        self._pf_stop = None
+        self._closed = False
         self.stats = stats
 
     # -- host fill (the reference's body; only the reuse gate differs) ------
@@ -199,7 +282,7 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
         pictures; only the pending picture is re-emitted)."""
         gw = self.n * self.window
         if self._slots is None:
-            self._slots = [_ref._Slot(self.geom, gw, self._kmg, self._keg)
+            self._slots = [_Slot(self.geom, gw, self._kmg, self._keg)
                            for _ in range(2)]
             self._slot_i = 0
         slot = self._slots[self._slot_i]
@@ -240,8 +323,8 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
                     while not other.evt.wait(timeout=0.5):
                         if self._closed:
                             raise RuntimeError("decoder closed")
-                self._slots = [_ref._Slot(self.geom, gw, self._kmg,
-                                          self._keg) for _ in range(2)]
+                self._slots = [_Slot(self.geom, gw, self._kmg, self._keg)
+                               for _ in range(2)]
                 self._slot_i = 0
                 slot = self._slots[0]
                 v = slot.views
@@ -280,7 +363,78 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
         if self._carry is None:
             self._carry = initial_carry(self.geom, self.n, self.device)
 
-    def decode_window(self):
+    def _next_filled(self):
+        """The next parsed global window — prefetched or inline."""
+        if not self._prefetch:
+            return self._fill()
+        import queue
+        import weakref
+        if self._pf_thread is None:
+            self._pf_queue = q = queue.Queue(maxsize=1)
+            self._pf_stop = stop = []
+            wr = weakref.ref(self)
+
+            def producer():
+                while True:
+                    dec = wr()
+                    if dec is None or stop:
+                        return
+                    try:
+                        item = dec._fill()
+                    except BaseException as e:   # noqa: BLE001
+                        del dec
+                        while not (stop or wr() is None):
+                            try:
+                                q.put(e, timeout=0.5)
+                                break
+                            except queue.Full:
+                                pass
+                        return
+                    done = not item[1].any()
+                    del dec
+                    while True:
+                        if stop or wr() is None:
+                            return
+                        try:
+                            q.put(item, timeout=0.5)
+                            break
+                        except queue.Full:
+                            pass
+                    if done:   # every stream dry: stop after the flush
+                        return
+
+            self._pf_thread = threading.Thread(target=producer,
+                                               daemon=True)
+            self._pf_thread.start()
+        item = self._pf_queue.get()
+        if isinstance(item, BaseException):
+            self._pf_thread = None
+            self._closed = True
+            raise item
+        if not item[1].any() and self._pf_thread is not None:
+            self._pf_thread.join()
+            self._pf_thread = None
+            self._prefetch = False   # flush/polling continues inline
+        return item
+
+    def close(self) -> None:
+        """Stop the prefetch thread (early exits); further
+        decode_window() calls return None (the producer may have parsed
+        one window ahead — resuming would skip frames)."""
+        self._closed = True   # also unsticks evt.wait loops
+        if self._pf_thread is not None:
+            self._pf_stop.append(True)
+            import queue
+            while self._pf_thread.is_alive():
+                try:
+                    self._pf_queue.get_nowait()
+                except queue.Empty:
+                    pass
+                self._pf_thread.join(timeout=0.1)
+            self._pf_thread = None
+        self._prefetch = False
+
+    def decode_window(self) -> Optional[list]:
         """One lockstep round; None when every stream is exhausted."""
         if self._closed:
             return None
@@ -336,4 +490,13 @@ class MultiStreamVideoDecoder(_ref.MultiStreamVideoDecoder):
                 else:
                     self._has_ref[s] = True
             out.append(frames)
+        return out
+
+    def decode_all(self) -> list:
+        """Run every stream to completion; returns per-stream frame
+        lists in display order."""
+        out = [[] for _ in range(self.n)]
+        while (got := self.decode_window()) is not None:
+            for s, frames in enumerate(got):
+                out[s].extend(frames)
         return out

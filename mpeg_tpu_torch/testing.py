@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpeg_tpu import tables as T
-from mpeg_tpu.video import _PicturePlan
+from . import tables as T
+from .video import _PicturePlan
 
 
 def random_plan(geom, rng: np.random.Generator, ptype: int) -> _PicturePlan:

@@ -177,19 +177,27 @@ def test_streaming_feed_matches_whole_buffer(mpeg1video_path):
 
 
 def test_device_is_explicit(mpeg1video_path):
-    """No entry point picks a device by itself, and "cuda" without a
-    card raises instead of running on the CPU."""
+    """The entry points default to the card; "cuda" (given or by
+    default) without a card raises instead of running on the CPU, and no
+    device is picked from None."""
+    from mpeg_tpu_torch.parallel import carry_from_numpy
+
     data = open(mpeg1video_path, "rb").read()
     with pytest.raises(TypeError):
         BatchVideoDecoder(data, window=4, device=None)
     with pytest.raises(ValueError):
         BatchVideoDecoder(data, window=4, device="meta")
+    frames = [np.zeros(16, np.uint8)] * 3
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            BatchVideoDecoder(data, window=4, device="cuda")
+        for make in (lambda: BatchVideoDecoder(data, window=4,
+                                               device="cuda"),
+                     lambda: BatchVideoDecoder(data, window=4),
+                     lambda: carry_from_numpy(frames)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
     else:
-        assert BatchVideoDecoder(data, window=4, device="cuda") \
-            .device.type == "cuda"
+        assert BatchVideoDecoder(data, window=4).device.type == "cuda"
+        assert carry_from_numpy(frames)[0].device.type == "cuda"
 
 
 def test_unported_options_raise(mpeg1video_path):

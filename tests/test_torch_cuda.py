@@ -10,11 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from mpeg_tpu.ops.video_recon import FrameGeometry
-from mpeg_tpu.utils import Fnv1a64
+from mpeg_tpu_torch.native import NativeVideoParser
 from mpeg_tpu_torch.ops import cuda_kernels
 from mpeg_tpu_torch.ops import video_recon as tvr
+from mpeg_tpu_torch.ops.video_recon import FrameGeometry
+from mpeg_tpu_torch.tables import PICTURE_TYPE_B
 from mpeg_tpu_torch.testing import plan_args, random_blocks, random_plan
+from mpeg_tpu_torch.utils import Fnv1a64
+
+TESTDATA = pathlib.Path(__file__).parent / "testdata"
 
 pytestmark = pytest.mark.cuda
 
@@ -83,14 +87,14 @@ def test_reconstruct_multi_kernel_matches_plain(size):
         cur, fwd, bwd = want, bwd, cur
 
 
-def test_stream_batched_reconstruct_matches_single_launches():
+@pytest.mark.parametrize("s_n, noop", [(6, (4,)), (64, (0, 9, 33, 63))])
+def test_stream_batched_reconstruct_matches_single_launches(s_n, noop):
     """One K1 launch over S streams of a frame pool equals S
-    single-picture launches: P, B and reference steps, a no-op stream,
-    picture indices out of stream order."""
+    single-picture launches: P, B and reference steps, no-op streams
+    (first and last among them), picture indices out of stream order."""
     dev = _card()
     rng = np.random.default_rng(13)
     geom = FrameGeometry.for_size(272, 64)
-    s_n = 6
     pool = torch.from_numpy(rng.integers(0, 256, (4 * s_n, geom.total_size))
                             .astype(np.uint8)).to(dev)
     plans = [plan_args(random_plan(geom, rng, 1 + s % 2), dev)
@@ -100,7 +104,7 @@ def test_stream_batched_reconstruct_matches_single_launches():
     for s in range(s_n):
         c, f, b, o = 4 * s, 4 * s + 1, 4 * s + 2, 4 * s + 3
         rows.append([c, b if s % 3 == 0 else f, b, o,
-                     -1 if s == 4 else s_n - 1 - s])
+                     -1 if s in noop else s_n - 1 - s])
     table = torch.tensor(rows, dtype=torch.int32, device=dev)
     before = pool.clone()
     cuda_kernels.reset_launches()
@@ -120,6 +124,121 @@ def test_stream_batched_reconstruct_matches_single_launches():
     assert torch.equal(pool, want_pool)
 
 
+def _fixture_pictures(dev):
+    """The 1080p fixture's 32 pictures in decode order, with the frames
+    the plain reconstruct gives each: [(cur, fwd, bwd, plan args)]."""
+    parser = NativeVideoParser((TESTDATA / "test1080.m1v").read_bytes())
+    geom = parser.geom()
+    cur, fwd, bwd = (torch.zeros(geom.total_size, dtype=torch.uint8,
+                                 device=dev) for _ in range(3))
+    pics = []
+    while (item := parser.parse_next_plan()) is not None:
+        plan, ptype = item
+        args = plan_args(plan, dev)
+        is_ref = ptype != PICTURE_TYPE_B
+        fwd_eff = bwd if is_ref else fwd
+        pics.append((cur, fwd_eff, bwd, args))
+        new = tvr.reconstruct_picture(cur, fwd_eff, bwd, *args, geom)
+        if is_ref:
+            cur, fwd, bwd = fwd, bwd, new
+        else:
+            cur = new
+    return geom, pics
+
+
+def test_k1_fixture_pictures_match_plain():
+    """K1 on the 1080p fixture's 32 real pictures (3 I, 29 P that code
+    5-8% of their blocks), byte-equal to the plain version."""
+    dev = _card()
+    geom, pics = _fixture_pictures(dev)
+    assert len(pics) == 32
+    for i, (c, f, b, a) in enumerate(pics):
+        got = cuda_kernels.reconstruct_picture(c, f, b, *a, geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tvr.reconstruct_picture(c, f, b, *a, geom)), i
+
+
+@pytest.mark.parametrize("size", [(272, 64), (1920, 1080)])
+def test_k1_skips_uncoded_blocks_with_junk(size):
+    """Uncoded blocks (nblocks <= 0, some negative) keep nonzero junk
+    coefficients, and uncoded intra flags are set: K1 must read neither."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    geom = FrameGeometry.for_size(*size)
+    cur, fwd, bwd = (torch.from_numpy(rng.integers(0, 256, geom.total_size)
+                                      .astype(np.uint8)).to(dev)
+                     for _ in range(3))
+    for trial in range(3):
+        plan = random_plan(geom, rng, 1)
+        uncoded = rng.random(plan.nblocks.shape) < 0.6
+        plan.nblocks[uncoded] = rng.integers(-3, 1, int(uncoded.sum()))
+        plan.intra_blk[:] = rng.integers(0, 2, plan.intra_blk.shape)
+        if trial == 2:
+            plan.src_sel[:] = 0
+        args = plan_args(plan, dev)
+        got = cuda_kernels.reconstruct_picture(cur, fwd, bwd, *args, geom)
+        want = tvr.reconstruct_picture(cur, fwd, bwd, *args, geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{size} trial {trial}"
+
+
+def _edge_plan(geom, rng, edge: str):
+    """A plan whose every macroblock's luma window starts at a chosen
+    flat place: past the end of a row ("row_end": the taps continue into
+    the next row), in the last rows of the [fwd | bwd] stack ("bottom":
+    rows clamp to rows2 - 2 and the c/d taps and the row ends reach past
+    2 * total, where they read 0) or above the first row ("top": rows
+    clamp to 0).  Half-pel bits and src_sel vary; the chroma windows
+    follow from the halved vectors."""
+    from mpeg_tpu_torch.video import _PicturePlan
+
+    mb = geom.mb_size
+    lw = geom.luma_width
+    rows2 = 2 * geom.total_size // lw
+    p = _PicturePlan(mb)
+    p.coeffs[:] = rng.integers(-2047 * 32, 2047 * 32, (mb, 6, 64))
+    p.nblocks[:] = rng.integers(0, 12, (mb, 6))
+    p.src_sel[:] = rng.integers(1, 3, mb)
+    for m in range(mb):
+        mby, mbx = divmod(m, geom.mb_width)
+        row0 = mby * 16 + (geom.total_size // lw if p.src_sel[m] == 2 else 0)
+        if edge == "row_end":
+            dh = lw - mbx * 16 - int(rng.integers(1, 17))
+            dv = int(rng.integers(-2, 3))
+        elif edge == "bottom":
+            dh = int(rng.integers(-mbx * 16, lw - mbx * 16))
+            dv = rows2 - 1 - int(rng.integers(0, 20)) - row0
+        else:
+            dh = int(rng.integers(-mbx * 16, lw - mbx * 16))
+            dv = -row0 - int(rng.integers(-4, 30))
+        p.mv_h[m] = 2 * dh + int(rng.integers(0, 2))
+        p.mv_v[m] = 2 * dv + int(rng.integers(0, 2))
+    return p
+
+
+@pytest.mark.parametrize("size", [(80, 48), (272, 64), (1920, 1080)])
+@pytest.mark.parametrize("edge", ["row_end", "bottom", "top"])
+def test_k1_windows_at_the_edges(size, edge):
+    """MC windows that cross row ends, clamp rows (which then repeat)
+    and reach past 2 * total: K1 byte-equal to the plain version (the
+    chroma stride of 272x64 is 8 modulo 16, so its rows start off the
+    16-byte granule)."""
+    dev = _card()
+    rng = np.random.default_rng(
+        [*size, ("row_end", "bottom", "top").index(edge)])
+    geom = FrameGeometry.for_size(*size)
+    cur, fwd, bwd = (torch.from_numpy(rng.integers(0, 256, geom.total_size)
+                                      .astype(np.uint8)).to(dev)
+                     for _ in range(3))
+    for trial in range(2):
+        args = plan_args(_edge_plan(geom, rng, edge), dev)
+        f = bwd if trial else fwd        # a reference step: fwd aliases bwd
+        got = cuda_kernels.reconstruct_picture(cur, f, bwd, *args, geom)
+        want = tvr.reconstruct_picture(cur, f, bwd, *args, geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{size} {edge} trial {trial}"
+
+
 def test_wrappers_refuse_bad_inputs():
     dev = _card()
     geom = FrameGeometry.for_size(80, 48)
@@ -136,6 +255,17 @@ def test_wrappers_refuse_bad_inputs():
     bad[0] = bad[0].to(torch.int64)
     with pytest.raises(ValueError):
         cuda_kernels.reconstruct_picture(frame, frame, frame, *bad, geom)
+    # K1 copies 16-byte granules: a frame that starts off 16 bytes is
+    # refused, as are block counts off 8 bytes.
+    shifted = torch.zeros(geom.total_size + 8, dtype=torch.uint8,
+                          device=dev)[8:]
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernels.reconstruct_picture(frame, shifted, frame, *args, geom)
+    odd = list(args)
+    odd[1] = torch.zeros(args[1].numel() + 1, dtype=torch.int32,
+                         device=dev)[1:].view(args[1].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernels.reconstruct_picture(frame, frame, frame, *odd, geom)
     with pytest.raises(ValueError):
         cuda_kernels.reconstruct_picture_multi(frame, frame, frame, *bad,
                                                geom)
@@ -165,9 +295,8 @@ def test_multistream_on_card_matches_cpu():
     from mpeg_tpu_torch.parallel import MultiStreamVideoDecoder
 
     _card()
-    root = pathlib.Path(__file__).parent / "testdata"
-    es = (root / "test.mpeg1video").read_bytes()
-    ps = (root / "test.mpg").read_bytes()
+    es = (TESTDATA / "test.mpeg1video").read_bytes()
+    ps = (TESTDATA / "test.mpg").read_bytes()
     sources = [es, ps, es[:len(es) // 3], es[:len(es) // 2]]
     want = MultiStreamVideoDecoder(sources, window=4, chunks=2,
                                    device="cpu").decode_all()
@@ -186,8 +315,7 @@ def test_decoder_golden_on_card():
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
     _card()
-    data = (pathlib.Path(__file__).parent / "testdata" /
-            "test.mpeg1video").read_bytes()
+    data = (TESTDATA / "test.mpeg1video").read_bytes()
     dec = BatchVideoDecoder(data, window=16, device="cuda")
     cuda_kernels.reset_launches()
     frames = dec.decode_all()

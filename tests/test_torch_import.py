@@ -1,9 +1,12 @@
-"""The port never imports jax: a fresh interpreter that refuses every jax
-import loads the whole port (and what chip_smoke.py imports), decodes one
-CPU window, and one lockstep round of two streams."""
+"""The port stands alone: a fresh interpreter that refuses every import of
+jax, of the JAX package `mpeg_tpu` and of its `native` sources loads the
+whole port and chip_smoke.py, decodes CPU windows (native and Python
+parse) and lockstep rounds of two streams, and ends with none of them
+loaded."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -12,43 +15,56 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 _CHILD = r"""
 import sys
 
-class _NoJax:
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked: {name}")
+_BLOCKED = ("jax", "jaxlib", "mpeg_tpu", "native")
 
-sys.meta_path.insert(0, _NoJax())
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError(f"blocked: {name}")
+
+sys.meta_path.insert(0, _Block())
 
 import mpeg_tpu_torch
+import mpeg_tpu_torch._spec_tables
+import mpeg_tpu_torch.buffer
+import mpeg_tpu_torch.config
+import mpeg_tpu_torch.demux
 import mpeg_tpu_torch.device
+import mpeg_tpu_torch.native
 import mpeg_tpu_torch.ops._build
 import mpeg_tpu_torch.ops.color
 import mpeg_tpu_torch.ops.cuda_kernels
 import mpeg_tpu_torch.ops.video_recon
 import mpeg_tpu_torch.parallel
 import mpeg_tpu_torch.parallel.multistream
+import mpeg_tpu_torch.tables
 import mpeg_tpu_torch.testing
+import mpeg_tpu_torch.utils
+import mpeg_tpu_torch.utils.profiling
+import mpeg_tpu_torch.video
 from mpeg_tpu_torch.parallel import BatchVideoDecoder, MultiStreamVideoDecoder
-# What chip_smoke.py imports besides the port.
 import chip_smoke
-import mpeg_tpu.native
-import mpeg_tpu.utils.profiling
 
 data = open("tests/testdata/test.mpeg1video", "rb").read()
 dec = BatchVideoDecoder(data, window=8, device="cpu")
 frames = dec.decode_window()
 assert len(frames) == 7, len(frames)          # the reference delay
 assert all(f.device.type == "cpu" for f in frames)
+py = BatchVideoDecoder(data[:30000], window=8, device="cpu",
+                       use_native=False).decode_window()
+assert len(py) == 7 and all(a.equal(b) for a, b in zip(py, frames))
 ms = MultiStreamVideoDecoder([data[:40000], data[:30000]], window=4,
                              device="cpu")
 rnd = ms.decode_window()
 assert [len(r) for r in rnd] == [3, 3], rnd   # the reference delay
+rnd = ms.decode_window()
+assert [len(r) for r in rnd] == [4, 4], rnd
 rgba = MultiStreamVideoDecoder([data[:30000]], window=4, device="cpu",
                                emit_rgba=True).decode_window()
 assert rgba[0][0].shape == (120, 160, 4), rgba[0][0].shape
 probe = mpeg_tpu_torch.probe()
 assert probe["torch"] and "cuda_available" in probe
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
 assert not loaded, loaded
 print("OK", len(frames))
 """
@@ -62,11 +78,28 @@ def test_port_imports_and_decodes_without_jax():
     assert r.stdout.strip().endswith("OK 7"), r.stdout
 
 
+# An import of jax, of the JAX package (`mpeg_tpu`, not `mpeg_tpu_torch`)
+# or of its `native` sources, at any indentation (lazy imports too).
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|mpeg_tpu(?![\w])|native\b)"
+    r"|jax\.numpy", re.M)
+
+
 def test_port_sources_name_no_jax():
-    """No source file of the port, nor chip_smoke.py, imports jax, even
-    lazily."""
+    """No source file of the port, nor chip_smoke.py, imports jax, the
+    JAX package or its native sources, even lazily."""
     for path in [*(REPO / "mpeg_tpu_torch").rglob("*.py"),
                  REPO / "chip_smoke.py"]:
-        text = path.read_text()
-        for needle in ("import jax", "from jax", "jax.numpy"):
-            assert needle not in text, f"{path}: {needle}"
+        hits = _FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+
+
+def test_forbidden_pattern_catches_the_package_not_the_port():
+    for bad in ("import mpeg_tpu", "from mpeg_tpu.native import X",
+                "    from mpeg_tpu import tables", "import native",
+                "from native import parser", "import jax.numpy as jnp"):
+        assert _FORBIDDEN.search(bad), bad
+    for good in ("import mpeg_tpu_torch", "from mpeg_tpu_torch import x",
+                 "from . import native", "from .native import load",
+                 "    from .. import native as native_mod"):
+        assert not _FORBIDDEN.search(good), good

@@ -107,8 +107,12 @@ def test_recon_choices(mpeg1video_path):
     es = open(mpeg1video_path, "rb").read()[:20000]
     with pytest.raises(ValueError):
         MultiStreamVideoDecoder([es], recon="mosaic", device="cpu")
+    if not torch.cuda.is_available():
+        # The default device is the card, never a CPU fallback.
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MultiStreamVideoDecoder([es])
     with pytest.raises(TypeError):
-        MultiStreamVideoDecoder([es])   # the device is explicit
+        MultiStreamVideoDecoder([es], device=None)
     ms = MultiStreamVideoDecoder([es], recon="xla", device="cpu")
     assert ms.decode_window() is not None
 

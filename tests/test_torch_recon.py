@@ -86,3 +86,44 @@ def test_reconstruct_wrapper_cpu_path_counts_no_launch():
     assert cuda_kernels.reconstruct_picture.launches == 0
     want = tvr.reconstruct_picture(*frames, *args, geom)
     assert torch.equal(got, want)
+
+
+def test_reconstruct_bound_on_fixture_pictures():
+    """`reconstruct_bound` on the 1080p fixture's first I and P picture:
+    256 B a coded block, 64 B a block not coded intra, 60 B of plan a
+    macroblock, the written frame and its pad read, at 3.35 TB/s."""
+    import pathlib
+
+    from mpeg_tpu_torch.native import NativeVideoParser
+
+    data = (pathlib.Path(__file__).parent / "testdata" /
+            "test1080.m1v").read_bytes()
+    parser = NativeVideoParser(data)
+    geom = parser.geom()
+    (i_plan, i_type), (p_plan, p_type) = (parser.parse_next_plan()
+                                          for _ in range(2))
+    assert (i_type, p_type) == (1, 2)
+    frame = geom.total_size + (geom.total_size - geom.frame_size)
+    assert (geom.mb_size, geom.total_size, frame) == (8160, 3164160, 3194880)
+
+    def bound(plan):
+        return cuda_kernels.reconstruct_bound(
+            torch.from_numpy(plan.nblocks), torch.from_numpy(plan.intra_blk),
+            geom)
+
+    # The I picture codes every block intra: no prediction is read.
+    assert (i_plan.nblocks > 0).all() and (i_plan.intra_blk > 0).all()
+    assert bound(i_plan) == {"bytes": 256 * 48960 + 60 * 8160 + frame,
+                             "us": 16218240 / 3.35e12 * 1e6}
+    coded = int((p_plan.nblocks > 0).sum())
+    coded_intra = int(((p_plan.nblocks > 0) & (p_plan.intra_blk > 0)).sum())
+    assert 2458 <= coded <= 4130
+    want = 256 * coded + 64 * (48960 - coded_intra) + 60 * 8160 + frame
+    assert bound(p_plan)["bytes"] == want
+    assert 2.0 < bound(p_plan)["us"] < 2.5
+    # Leading axes sum over pictures.
+    both = cuda_kernels.reconstruct_bound(
+        torch.from_numpy(np.stack([i_plan.nblocks, p_plan.nblocks])),
+        torch.from_numpy(np.stack([i_plan.intra_blk, p_plan.intra_blk])),
+        geom)
+    assert both["bytes"] == 16218240 + want
