@@ -1,32 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`mpeg_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--k1-baseline RECON_CU]
+    python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
 (and the C++ host parser with g++, at the same time) and holds each
 kernel against its plain PyTorch version on the card at 1080p (K1 on
-adversarial plans, one picture and 64 streams in one launch, and on the
-1080p fixture's 32 pictures in decode order; K2; K3), each timed beside
-its byte bound, then drives every path of the port and checks its
-output:
+adversarial plans, one picture and 64 streams in one launch; K2; K3, the
+whole path and its two plane launches alone; K1 and K3 on the 1080p
+fixture's 32 pictures in decode order), each timed beside its byte
+bound, then drives every path of the port and checks its output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
   device="cuda")` against their golden hashes;
 - `e2e_1080p`: the 1080p fixture against the C++ host decoder, timed;
 - `recon_multi_1080p`: the same with K3 (K2 + two plane launches) in
-  K1's place;
+  K1's place, then timed and profiled (K3's device time a picture);
 - `multistream_golden`: four mixed streams in lockstep against solo
   decodes and the goldens;
 - `multistream_1080p`: 64 streams of the 1080p fixture, window 2, every
   frame against the C++ host decoder, then timed and profiled;
 - `rgba`: the 1080p fixture with `emit_rgba=True` against numpy.
 
-`--k1-baseline` (which may be repeated) also builds K1 from another copy
-of `recon.cu` (an earlier commit's, or an edited copy with another ring
-depth or CTAs a SM) and times it and this K1 in turns (baseline, this,
-this, baseline) on the fixture's pictures, the adversarial plan and
-64-stream launches.
+`--baseline` (which may be repeated) also builds K1 and K3 from another
+copy of `recon.cu` (an earlier commit's, or an edited copy with another
+ring depth, CTAs a SM or consumer mapping) and times them and this K1
+and K3 in turns (baseline, this, this, baseline) on the fixture's
+pictures, the adversarial plan and (K1) 64-stream launches.
 
 Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
 plain version's `plain_ms` is the wall of back-to-back calls by CUDA
@@ -158,7 +158,9 @@ def phase_build() -> None:
           "parser_library": os.path.relpath(parser_so, REPO),
           "seconds": secs, "flags": _build.NVCC_FLAGS,
           "ptxas": _ptxas_lines(log),
-          "k1_dynamic_smem_bytes": lib.mt_reconstruct_smem_bytes()})
+          "k1_dynamic_smem_bytes": lib.mt_reconstruct_smem_bytes(),
+          "k3_dynamic_smem_bytes": {"luma": lib.mt_plane_smem_bytes(0),
+                                    "chroma": lib.mt_plane_smem_bytes(1)}})
 
 
 def _max_abs_err(got, want) -> int:
@@ -168,9 +170,10 @@ def _max_abs_err(got, want) -> int:
 def phase_kernel_parity(seed: int) -> dict:
     """K1, K2 and K3 against their plain versions at 1080p on adversarial
     plans (every MC mode, src_sel 0/1/2, junk MVs of +-3000, forward
-    aliasing backward), byte for byte, K3 against K1, and the
-    stream-batched K1 over 64 pictures against 64 single launches and its
-    plain version; then each timed at the main path's shapes."""
+    aliasing backward), byte for byte, K3 (the whole path, and its plane
+    launches on a given residual) against K1, and the stream-batched K1
+    over 64 pictures against 64 single launches and its plain version;
+    then each timed at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -207,6 +210,9 @@ def phase_kernel_parity(seed: int) -> dict:
                 cur, fwd, bwd, *args, geom),
                 f"trial {trial}, pallas_idct={pallas_idct}")
             check("k3", k3, new, f"K3 against K1, trial {trial}")
+        check("k3", cuda_kernels.reconstruct_planes(
+            cur, fwd, bwd, plain.idct_batch(*args[:2]), *args[1:], geom),
+            new, f"K3's plane launches, trial {trial}")
         coeffs, nblocks = args[0].view(-1, 64), args[1].view(-1)
         check("k2", cuda_kernels.idct_batch(coeffs, nblocks),
               plain.idct_batch(coeffs, nblocks), f"trial {trial}")
@@ -215,9 +221,12 @@ def phase_kernel_parity(seed: int) -> dict:
     args = list(plan_args(random_plan(geom, rng, 2), dev))
     uncoded = torch.from_numpy(rng.random(tuple(args[1].shape)) < 0.7)
     args[1] = torch.where(uncoded.to(dev), 0, args[1])
+    want = plain.reconstruct_picture(cur, fwd, bwd, *args, geom)
     check("k1", cuda_kernels.reconstruct_picture(cur, fwd, bwd, *args, geom),
-          plain.reconstruct_picture(cur, fwd, bwd, *args, geom),
-          "junk coefficients in uncoded blocks")
+          want, "junk coefficients in uncoded blocks")
+    check("k3", cuda_kernels.reconstruct_picture_multi(cur, fwd, bwd, *args,
+                                                       geom),
+          want, "junk coefficients in uncoded blocks")
     # Exact-variant coverage: sparse blocks of every class, and a batch
     # that ends in a part-filled CTA (16,376 blocks, 32 a CTA).
     c, n = (torch.from_numpy(a).to(dev) for a in random_blocks(
@@ -258,6 +267,7 @@ def phase_kernel_parity(seed: int) -> dict:
     # picture-step of 64 streams (per picture: / 64), as TIMED_BY says.
     args = plan_args(random_plan(geom, rng, 2), dev)
     coeffs, nblocks = args[0].view(-1, 64), args[1].view(-1)
+    res = plain.idct_batch(*args[:2])
     fns = {
         "k1": (lambda: cuda_kernels.reconstruct_picture(
             cur, fwd, bwd, *args, geom), 200, 1),
@@ -273,6 +283,10 @@ def phase_kernel_parity(seed: int) -> dict:
             cur, fwd, bwd, *args, geom), 200, 1),
         "k3_plain": (lambda: plain.reconstruct_picture_multi(
             cur, fwd, bwd, *args, geom), 20, 1),
+        "k3_planes": (lambda: cuda_kernels.reconstruct_planes(
+            cur, fwd, bwd, res, *args[1:], geom), 200, 1),
+        "k3_planes_plain": (lambda: plain.reconstruct_planes(
+            cur, fwd, bwd, res, *args[1:], geom), 20, 1),
     }
     t = {}
     for name, (fn, iters, per) in fns.items():
@@ -284,11 +298,15 @@ def phase_kernel_parity(seed: int) -> dict:
     t["launch_floor_ms"] = queued_ms(lambda: cuda_kernels.idct_batch(c1, n1),
                                      200)
     # Bounds from these inputs (each input byte read once, each output
-    # byte written once, at 3.35 TB/s): K1 and K3 compute one function.
+    # byte written once, at 3.35 TB/s): K1 and K3 compute one function,
+    # and K3's plane launches move K1's bytes; K3's path adds K2's.
     bound = cuda_kernels.reconstruct_bound(args[1], args[2], geom)
     streams_bound = cuda_kernels.reconstruct_bound(plans[1], plans[2], geom)
     n_blk = int(nblocks.numel())
-    t["k1_bound_ms"] = t["k3_bound_ms"] = bound["us"] / 1e3
+    t["k1_bound_ms"] = t["k3_bound_ms"] = t["k3_planes_bound_ms"] = \
+        bound["us"] / 1e3
+    t["k3_path_bound_ms"] = cuda_kernels.reconstruct_bound(
+        args[1], args[2], geom, separate_idct=True)["us"] / 1e3
     t["k1_streams_bound_ms"] = streams_bound["us"] / 1e3 / s_n
     t["k2_bound_ms"] = n_blk * (256 + 4 + 256) \
         / cuda_kernels.HBM_BYTES_PER_S * 1e3
@@ -346,12 +364,14 @@ def _fixture_pictures(dev) -> list:
 
 
 def phase_k1_fixture(baselines: list) -> dict:
-    """K1 on the 1080p fixture's 32 pictures in decode order (each byte
-    equal to the plain version), timed in turn (32 launches a call, so
-    each picture finds its coefficients outside the 50 MB L2) beside
-    each picture's bound.  K1 built from each source of `baselines` is
-    timed in turns with this one on the fixture, the adversarial plan and
-    64-stream launches."""
+    """K1 and K3 on the 1080p fixture's 32 pictures in decode order (each
+    byte equal to the plain version), timed in turn (32 pictures a call,
+    so each finds its coefficients or residual outside the 50 MB L2)
+    beside each picture's bound: K1, K3's whole path, and K3's plane
+    launches alone on each picture's residual (K2's, made beforehand).
+    K1 and K3 built from each source of `baselines` are timed in turns
+    with these on the fixture, the adversarial plan and (K1) 64-stream
+    launches."""
     import torch
 
     from mpeg_tpu_torch.ops import cuda_kernels
@@ -387,26 +407,55 @@ def phase_k1_fixture(baselines: list) -> dict:
         out[f"k1_{label}_ms"] = queued_ms(lambda: [  # noqa: B023
             cuda_kernels.reconstruct_picture(c, f, b, *a, geom)
             for c, f, b, a, _ in sub], 5) / len(sub)
+
+    res = [cuda_kernels.idct_batch(a[0].view(-1, 64), a[1].view(-1))
+           .view(a[0].shape) for _, _, _, a, _ in pics]
+    for i, ((c, f, b, a, _), r) in enumerate(zip(pics, res)):
+        want = plain.reconstruct_picture(c, f, b, *a, geom)
+        k3 = cuda_kernels.reconstruct_picture_multi(c, f, b, *a, geom)
+        planes = cuda_kernels.reconstruct_planes(c, f, b, r, *a[1:], geom)
+        torch.cuda.synchronize()
+        if not (torch.equal(k3, want) and torch.equal(planes, want)):
+            fail(f"k3 differs from its plain version on fixture picture {i}")
+    run_k3 = lambda: [cuda_kernels.reconstruct_picture_multi(  # noqa: E731
+        c, f, b, *a, geom) for c, f, b, a, _ in pics]
+    run_planes = lambda: [cuda_kernels.reconstruct_planes(  # noqa: E731
+        c, f, b, r, *a[1:], geom) for (c, f, b, a, _), r in zip(pics, res)]
+    run_planes_plain = lambda: [plain.reconstruct_planes(  # noqa: E731
+        c, f, b, r, *a[1:], geom) for (c, f, b, a, _), r in zip(pics, res)]
+    path_bound_ms = sum(cuda_kernels.reconstruct_bound(
+        a[1], a[2], geom, separate_idct=True)["us"]
+        for _, _, _, a, _ in pics) / n / 1e3
+    out.update({
+        "k3_equal": True, "k3_ms": queued_ms(run_k3, 5) / n,
+        "k3_planes_ms": queued_ms(run_planes, 5) / n,
+        "k3_planes_plain_ms": cuda_ms(run_planes_plain, 1) / n,
+        "k3_planes_bound_ms": bound_ms, "k3_path_bound_ms": path_bound_ms})
     if baselines:
-        out["turns"] = {src: _k1_turns(src, geom, pics)
+        out["turns"] = {src: _turns(src, geom, pics, res)
                         for src in baselines}
     emit(out)
     return out
 
 
-def _k1_turns(source: str, geom, pics) -> dict:
-    """K1 from `source` ("baseline") and this K1 ("this"), in turns
-    baseline, this, this, baseline (twice): card ms per 1080p picture
-    (`queued_ms`) on the fixture's pictures (cold), one adversarial plan
-    repeated (warm) and 64-stream launches, the median of each, beside
-    each case's bound; the baseline's outputs equal this K1's.  The
-    64-stream launch runs three times: adversarial plans, streams in
-    order with distinct slots ("streams_64"); as `kernel_parity` times
-    it, each stream reading a permuted picture and every third a
-    reference step whose forward aliases backward ("streams_64_perm");
-    and the fixture's plans, stream s taking picture 7s mod 32, as the
-    64-stream decode launches K1 on real pictures
-    ("streams_64_fixture")."""
+def _turns(source: str, geom, pics, fixture_res) -> dict:
+    """K1 and K3 from `source` ("baseline") and this K1 and K3 ("this"),
+    in turns baseline, this, this, baseline (twice): card ms per 1080p
+    picture (`queued_ms`), the median of each case, beside each case's
+    bound; the baseline's outputs equal these.  K1 on the fixture's
+    pictures (cold), one adversarial plan repeated (warm) and 64-stream
+    launches.  The 64-stream launch runs three times: adversarial plans,
+    streams in order with distinct slots ("streams_64"); as
+    `kernel_parity` times it, each stream reading a permuted picture and
+    every third a reference step whose forward aliases backward
+    ("streams_64_perm"); and the fixture's plans, stream s taking picture
+    7s mod 32, as the 64-stream decode launches K1 on real pictures
+    ("streams_64_fixture").  K3 ("k3_*") on the adversarial plan and the
+    fixture's pictures, its whole path (K2 and the plane launches) and
+    its two plane launches alone on a given residual (`fixture_res`, and
+    the adversarial plan's); the baseline's K3 is K2 and the plane
+    launches from `source`, with the pad bytes copied after them where
+    its chroma launch does not write them (before this K3 it did not)."""
     import numpy as np
     import torch
 
@@ -431,11 +480,38 @@ def _k1_turns(source: str, geom, pics) -> dict:
         base_k1(None, None, 1, c, f, b, out, args)
         return out
 
+    pad_copy = not hasattr(lib, "mt_plane_smem_bytes")  # an older K3
+
+    def base_planes(c, f, b, r, args):
+        out = torch.empty_like(c)
+        stream = torch.cuda.current_stream().cuda_stream
+        for chroma in (0, 1):
+            code = lib.mt_reconstruct_plane(
+                c.data_ptr(), f.data_ptr(), b.data_ptr(), r.data_ptr(),
+                *(a.data_ptr() for a in args[1:]), out.data_ptr(),
+                geom.mb_width, geom.mb_height, chroma, stream)
+            if code:
+                fail(f"baseline K3: CUDA error {code}")
+        if pad_copy:
+            out[geom.frame_size:].copy_(c[geom.frame_size:])
+        return out
+
+    def base_k3(c, f, b, args):
+        r = torch.empty_like(args[0])
+        code = lib.mt_idct_batch(args[0].data_ptr(), args[1].data_ptr(),
+                                 r.data_ptr(), r.numel() // 64,
+                                 torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"baseline K2: CUDA error {code}")
+        return base_planes(c, f, b, r, args)
+
     rng = np.random.default_rng(1)
     frame = lambda: torch.from_numpy(  # noqa: E731
         rng.integers(0, 256, geom.total_size).astype(np.uint8)).to(dev)
     cur, fwd, bwd = frame(), frame(), frame()
     adv = plan_args(random_plan(geom, rng, 2), dev)
+    adv_res = cuda_kernels.idct_batch(adv[0].view(-1, 64),
+                                      adv[1].view(-1)).view(adv[0].shape)
     s_n = N_STREAMS
     pool = torch.from_numpy(rng.integers(0, 256, (4 * s_n, geom.total_size))
                             .astype(np.uint8)).to(dev)
@@ -464,6 +540,14 @@ def _k1_turns(source: str, geom, pics) -> dict:
             pool.clone(), table_fix, *plans_fix, geom)):
         fail("baseline K1 and this K1 differ on 64 fixture streams")
     del got
+    for (c, f, b, a, _), r in [(pics[k], fixture_res[k])
+                               for k in (0, 1, 2, 30, 31)] + \
+            [((cur, fwd, bwd, adv, 2), adv_res)]:
+        want = cuda_kernels.reconstruct_planes(c, f, b, r, *a[1:], geom)
+        if not (torch.equal(base_planes(c, f, b, r, a), want)
+                and torch.equal(base_k3(c, f, b, a), want)):
+            fail("baseline K3 and this K3 differ")
+    fix = list(zip(pics, fixture_res))
     cases = {
         "fixture_cold": (
             lambda: [base_one(c, f, b, a) for c, f, b, a, _ in pics],
@@ -489,20 +573,47 @@ def _k1_turns(source: str, geom, pics) -> dict:
             lambda: cuda_kernels.reconstruct_pictures(pool, table_fix,
                                                       *plans_fix, geom),
             10, s_n),
+        "k3_fixture_cold": (
+            lambda: [base_k3(c, f, b, a) for c, f, b, a, _ in pics],
+            lambda: [cuda_kernels.reconstruct_picture_multi(c, f, b, *a,
+                                                            geom)
+                     for c, f, b, a, _ in pics], 5, len(pics)),
+        "k3_planes_fixture_cold": (
+            lambda: [base_planes(c, f, b, r, a)
+                     for (c, f, b, a, _), r in fix],
+            lambda: [cuda_kernels.reconstruct_planes(c, f, b, r, *a[1:],
+                                                     geom)
+                     for (c, f, b, a, _), r in fix], 5, len(pics)),
+        "k3_adversarial_warm": (
+            lambda: base_k3(cur, fwd, bwd, adv),
+            lambda: cuda_kernels.reconstruct_picture_multi(
+                cur, fwd, bwd, *adv, geom), 200, 1),
+        "k3_planes_adversarial_warm": (
+            lambda: base_planes(cur, fwd, bwd, adv_res, adv),
+            lambda: cuda_kernels.reconstruct_planes(
+                cur, fwd, bwd, adv_res, *adv[1:], geom), 200, 1),
     }
-    # Each case's bound a picture (`cuda_kernels.reconstruct_bound`).
-    bound = lambda nb, ib, n: cuda_kernels.reconstruct_bound(  # noqa: E731
-        nb, ib, geom)["us"] / 1e3 / n
+    # Each case's bound a picture (`cuda_kernels.reconstruct_bound`; K3's
+    # whole path with K2's bytes).
+    def bound(nb, ib, n, k2=False):
+        return cuda_kernels.reconstruct_bound(
+            nb, ib, geom, separate_idct=k2)["us"] / 1e3 / n
+
     fix_pics = table_fix[:, 4].long()
     bounds = {
         "fixture_cold": sum(bound(a[1], a[2], 1) for *_, a, _ in pics)
         / len(pics),
+        "k3_fixture_cold": sum(bound(a[1], a[2], 1, True)
+                               for *_, a, _ in pics) / len(pics),
         "adversarial_warm": bound(adv[1], adv[2], 1),
+        "k3_adversarial_warm": bound(adv[1], adv[2], 1, True),
         "streams_64": bound(plans[1], plans[2], s_n),
         "streams_64_perm": bound(plans[1], plans[2], s_n),
         "streams_64_fixture": bound(plans_fix[1][fix_pics],
                                     plans_fix[2][fix_pics], s_n),
     }
+    bounds["k3_planes_fixture_cold"] = bounds["fixture_cold"]
+    bounds["k3_planes_adversarial_warm"] = bounds["adversarial_warm"]
     res = {}
     for name, (fb, ft, iters, per) in cases.items():
         got = {"baseline": [], "this": []}
@@ -528,7 +639,11 @@ def _native_frames(data: bytes) -> list:
     return frames
 
 
-def profiled_pass(run, wall_median: float) -> dict:
+def _kernel_name(name: str) -> str:
+    return name.replace("(anonymous namespace)::", "")
+
+
+def profiled_pass(run, wall_median: float, kernels=None) -> dict:
     """One more pass of `run` under torch.profiler: how busy the card is
     and what fills it (rates are taken without the profiler).  The idle
     share is given against the profiled wall and against the unprofiled
@@ -536,7 +651,9 @@ def profiled_pass(run, wall_median: float) -> dict:
     on the card's machine the profiler records no device activity at
     all: the pass then reports its wall and `"device_recorded": false`,
     and no idle share (its frames are checked elsewhere); `main` says so
-    in its `idle_share` line."""
+    in its `idle_share` line.  `kernels` maps a label to a part of a
+    kernel's name (spaces ignored): the pass adds up each label's device
+    us and launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -546,18 +663,25 @@ def profiled_pass(run, wall_median: float) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = sorted(((k.device_time_total, k.key) for k in prof.key_averages()
+    dev = sorted(((k.device_time_total, _kernel_name(k.key), k.count)
+                  for k in prof.key_averages()
                   if k.device_type.name == "CUDA"), reverse=True)
-    busy_us = sum(us for us, _ in dev)
+    busy_us = sum(us for us, _, _ in dev)
     if busy_us <= 0:
         return {"wall_s": wall, "device_recorded": False}
-    top = [[us, name[:80]] for us, name in dev[:5]]
-    return {"wall_s": wall, "device_recorded": True,
-            "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1 - busy_us / 1e6 / wall,
-            "device_idle_share_unprofiled_wall":
-                1 - busy_us / 1e6 / wall_median,
-            "top_device_us": top}
+    top = [[us, name[:80]] for us, name, _ in dev[:5]]
+    out = {"wall_s": wall, "device_recorded": True,
+           "device_busy_s": busy_us / 1e6,
+           "device_idle_share": 1 - busy_us / 1e6 / wall,
+           "device_idle_share_unprofiled_wall":
+               1 - busy_us / 1e6 / wall_median,
+           "top_device_us": top}
+    for label, part in (kernels or {}).items():
+        hits = [(us, n) for us, name, n in dev
+                if part.replace(" ", "") in name.replace(" ", "")]
+        out[f"{label}_device_us"] = sum(us for us, _ in hits)
+        out[f"{label}_launches"] = sum(n for _, n in hits)
+    return out
 
 
 def _check_against_host(frames, want, fs: int, what: str) -> None:
@@ -662,10 +786,20 @@ def phase_e2e_1080p() -> dict:
     return out
 
 
+# K3's and K2's kernels by a part of their names (the plane launches are
+# the reconstruct kernel's residual instantiations).
+K3_KERNELS = {"k3_luma": "PlaneSet<0, 1, false>",
+              "k3_chroma": "PlaneSet<1, 3, false>",
+              "k2": "idct_batch_kernel"}
+
+
 def phase_recon_multi_1080p() -> dict:
     """The 1080p fixture with K3 in K1's place (the decoder's internal
     reconstruct argument): all frames against the C++ host decoder, K3
-    launched twice a picture and K2 once, K1 not at all."""
+    launched twice a picture and K2 once, K1 not at all; then timed over
+    fresh decoders after one untimed pass, and one profiled pass: K3's
+    and K2's device time a picture inside the decode and the card's idle
+    share."""
     import torch
 
     from mpeg_tpu_torch.ops import cuda_kernels
@@ -693,9 +827,30 @@ def phase_recon_multi_1080p() -> dict:
             "idct_batch": pictures, "reconstruct_picture": 0}:
         fail(f"K3 path: {len(frames)} frames, {pictures} pictures, "
              f"launches {launches}")
+
+    def decode():
+        d = BatchVideoDecoder(data, window=16, device="cuda")
+        d._recon = cuda_kernels.reconstruct_picture_multi
+        return d.decode_all()
+
+    walls = []
+    for i in range(1 + E2E_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        if i:                              # the first pass: not timed
+            walls.append(time.perf_counter() - t0)
+    profiled = profiled_pass(decode, statistics.median(walls), K3_KERNELS)
+    if profiled["device_recorded"]:
+        profiled["k3_planes_us_per_picture"] = (
+            profiled["k3_luma_device_us"] + profiled["k3_chroma_device_us"]
+        ) / pictures
+        profiled["k2_us_per_picture"] = profiled["k2_device_us"] / pictures
     out = {"phase": "recon_multi_1080p", "frames": len(frames),
            "pictures": pictures, "equal_to_native_host_decoder": True,
-           "launches": launches, "wall_s_first_pass": wall}
+           "launches": launches, "wall_s_first_pass": wall,
+           "walls_s": walls, "profiled_pass": profiled}
     emit(out)
     return out
 
@@ -873,10 +1028,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the adversarial kernel inputs")
-    ap.add_argument("--k1-baseline", metavar="RECON_CU", action="append",
+    ap.add_argument("--baseline", metavar="RECON_CU", action="append",
                     default=[],
-                    help="also time K1 built from this copy of recon.cu "
-                         "in turns with this K1 (may be repeated)")
+                    help="also time K1 and K3 built from this copy of "
+                         "recon.cu in turns with this K1 and K3 (may be "
+                         "repeated)")
     args = ap.parse_args()
 
     import torch
@@ -893,20 +1049,21 @@ def main() -> int:
     phase_probe()
     phase_build()
     parity = phase_kernel_parity(args.seed)
-    fixture = phase_k1_fixture(args.k1_baseline)
+    fixture = phase_k1_fixture(args.baseline)
     phase_golden()
     e2e = phase_e2e_1080p()
     multi = phase_recon_multi_1080p()
     phase_multistream_golden()
     streams = phase_multistream_1080p()
     phase_rgba()
-    # The two decodes' idle share, or that the profiler recorded nothing.
+    # The three decodes' idle share, or that the profiler recorded nothing.
     emit({"idle_share": {
         name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
                if out["profiled_pass"]["device_recorded"] else
                "not measured: torch.profiler recorded no device activity")
-        for name, out in (("e2e_1080p", e2e), ("multistream_1080p",
-                                               streams))}})
+        for name, out in (("e2e_1080p", e2e), ("recon_multi_1080p", multi),
+                          ("multistream_1080p", streams))}})
+    k3_decode = multi["profiled_pass"]
 
     src, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
 
@@ -935,10 +1092,28 @@ def main() -> int:
         row("idct_batch", 93, multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
             parity["k2_plain_ms"], parity["k2_bound_ms"]),
+        # K3: launches (two plane launches a picture) on the K3 decode;
+        # `ms` the whole path (K2 and the plane launches) on one
+        # adversarial picture, `bound_ms` the function's (K1's) bound,
+        # `path_bound_ms` with K2's bytes; `planes_*` the two plane
+        # launches alone on a given residual; `fixture_*` the fixture's
+        # pictures in decode order; `decode_planes_us` the plane
+        # launches' device us a picture in the profiled K3 decode.
         row("reconstruct_picture_multi", 246,
             multi["launches"]["reconstruct_picture_multi"],
             parity["k3_max_abs_err"], parity["k3_ms"],
-            parity["k3_plain_ms"], parity["k3_bound_ms"]),
+            parity["k3_plain_ms"], parity["k3_bound_ms"],
+            path_bound_ms=parity["k3_path_bound_ms"],
+            planes_ms=parity["k3_planes_ms"],
+            planes_plain_ms=parity["k3_planes_plain_ms"],
+            planes_bound_ms=parity["k3_planes_bound_ms"],
+            fixture_ms=fixture["k3_ms"],
+            fixture_planes_ms=fixture["k3_planes_ms"],
+            fixture_planes_plain_ms=fixture["k3_planes_plain_ms"],
+            fixture_bound_ms=fixture["k3_planes_bound_ms"],
+            fixture_path_bound_ms=fixture["k3_path_bound_ms"],
+            decode_planes_us=k3_decode.get("k3_planes_us_per_picture",
+                                           "not measured")),
     ]})
     smi = gpu_name_and_power_limit()
     if not smi:

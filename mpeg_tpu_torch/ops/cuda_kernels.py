@@ -19,9 +19,14 @@ a run can show that its main path went through the kernel.
   bytes and time a K1 call needs for its plans.
 - `idct_batch` (K2): the standalone batched IDCT.  Replaces
   `idct_batch_pallas`; K1 runs the same device function fused.
-- `reconstruct_picture_multi` (K3): K2, then two plane launches, one for
-  luma and one for Cb|Cr.  Replaces `reconstruct_picture_pallas_multi`
-  (`_plane_pallas`); its count is the plane launches.
+- `reconstruct_picture_multi` (K3): K2, then `reconstruct_planes`: two
+  plane launches, one for luma and one for Cb|Cr (which also writes the
+  pad bytes).  Replaces `reconstruct_picture_pallas_multi`
+  (`_plane_pallas`); its count is the plane launches.  The plane
+  launches share K1's staging and copy granules too: `reconstruct_planes`
+  refuses frames and residual that do not start 16-byte aligned, and
+  block counts and intra flags that do not start 8-byte aligned.
+  `reconstruct_bound(..., separate_idct=True)` gives the K3 path's floor.
 """
 
 from __future__ import annotations
@@ -49,43 +54,51 @@ def _check_int32(name, t, shape, device):
 
 
 def _check_plan(geom, dev, coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v,
-                lead=()):
-    """The plan tensors of `lead` pictures (() for one picture)."""
+                lead=(), blocks="coeffs"):
+    """The plan tensors of `lead` pictures (() for one picture); `blocks`
+    names the first (coefficients, or K3's residual)."""
     mb = geom.mb_size
-    _check_int32("coeffs", coeffs, (*lead, mb, 6, 64), dev)
+    _check_int32(blocks, coeffs, (*lead, mb, 6, 64), dev)
     _check_int32("nblocks", nblocks, (*lead, mb, 6), dev)
     _check_int32("intra_blk", intra_blk, (*lead, mb, 6), dev)
     for name, t in (("src_sel", src_sel), ("mv_h", mv_h), ("mv_v", mv_v)):
         _check_int32(name, t, (*lead, mb), dev)
 
 
-def _check_aligned(name, t, align: int):
+def _check_aligned(kernel, name, t, align: int):
     if t.data_ptr() % align:
-        raise ValueError(f"{name}: K1 needs its data {align}-byte aligned "
-                         f"(data_ptr {t.data_ptr():#x})")
+        raise ValueError(f"{name}: {kernel} needs its data {align}-byte "
+                         f"aligned (data_ptr {t.data_ptr():#x})")
 
 
-def _check_k1_alignment(frames: dict, coeffs, nblocks, intra_blk):
-    for name, t in frames.items():
-        _check_aligned(name, t, 16)
-    _check_aligned("coeffs", coeffs, 16)
-    _check_aligned("nblocks", nblocks, 8)
-    _check_aligned("intra_blk", intra_blk, 8)
+def _check_alignment(kernel, frames: dict, blocks: dict, nblocks,
+                     intra_blk):
+    """K1 and K3 copy frames and blocks (coefficients or residual) in
+    16-byte granules and read block counts and intra flags 8 bytes at a
+    time."""
+    for name, t in (*frames.items(), *blocks.items()):
+        _check_aligned(kernel, name, t, 16)
+    _check_aligned(kernel, "nblocks", nblocks, 8)
+    _check_aligned(kernel, "intra_blk", intra_blk, 8)
 
 
-def reconstruct_bound(nblocks, intra_blk, geom: FrameGeometry) -> dict:
+def reconstruct_bound(nblocks, intra_blk, geom: FrameGeometry,
+                      separate_idct: bool = False) -> dict:
     """The least device-memory traffic of reconstructing the pictures of
     these plans (any leading axes before [mb, 6]), each input byte read
-    once and each output byte written once: 256 B of coefficients for
-    each coded block (nblocks > 0), 64 B of prediction for each block
-    that is not coded intra (from the current frame where src_sel is 0,
-    else from a reference: src_sel picks the frame, not the byte count),
-    60 B of plan a macroblock (nblocks, intra_blk, src_sel, mv_h, mv_v),
-    and a written frame of total_size bytes with its pad of
-    total_size - frame_size bytes read from the current frame.  Returns
-    {"bytes", "us"}, "us" the bytes over `HBM_BYTES_PER_S`; the integer
-    work (~600 ops an IDCT block) is far below the card's rate, so
-    bytes bound it."""
+    once and each output byte written once: 256 B of coefficients (K1)
+    or residual (K3's plane launches) for each coded block (nblocks > 0),
+    64 B of prediction for each block that is not coded intra (from the
+    current frame where src_sel is 0, else from a reference: src_sel
+    picks the frame, not the byte count), 60 B of plan a macroblock
+    (nblocks, intra_blk, src_sel, mv_h, mv_v), and a written frame of
+    total_size bytes with its pad of total_size - frame_size bytes read
+    from the current frame.  `separate_idct` gives the K3 path's floor:
+    it adds K2, which reads every block's 256 B of coefficients and 4 B
+    count and writes its 256 B of residual (516 B a block), so it is
+    never below K1's.  Returns {"bytes", "us"}, "us" the bytes over
+    `HBM_BYTES_PER_S`; the integer work (~600 ops an IDCT block) is far
+    below the card's rate, so bytes bound it."""
     coded = nblocks > 0
     n_coded = int(coded.sum())
     n_predicted = int((~(coded & (intra_blk > 0))).sum())
@@ -93,6 +106,8 @@ def reconstruct_bound(nblocks, intra_blk, geom: FrameGeometry) -> dict:
     frame = geom.total_size + (geom.total_size - geom.frame_size)
     nbytes = (256 * n_coded + 64 * n_predicted
               + pictures * (60 * geom.mb_size + frame))
+    if separate_idct:
+        nbytes += 516 * nblocks.numel()
     return {"bytes": nbytes, "us": nbytes / HBM_BYTES_PER_S * 1e6}
 
 
@@ -156,8 +171,9 @@ def reconstruct_picture(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
     _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
     _check_plan(geom, dev, *plan)
     out = torch.empty_like(cur_flat)
-    _check_k1_alignment({"cur": cur_flat, "fwd": fwd_flat, "bwd": bwd_flat,
-                         "out": out}, coeffs, nblocks, intra_blk)
+    _check_alignment("K1", {"cur": cur_flat, "fwd": fwd_flat,
+                            "bwd": bwd_flat, "out": out},
+                     {"coeffs": coeffs}, nblocks, intra_blk)
     lib = _build.load()
     with torch.cuda.device(dev):
         code = lib.mt_reconstruct_pictures(
@@ -195,7 +211,8 @@ def reconstruct_pictures(pool, table, coeffs, nblocks, intra_blk, src_sel,
     if not 0 < n <= _MAX_STREAMS:
         raise ValueError(f"table: 1 to {_MAX_STREAMS} streams, got {n}")
     _check_plan(geom, dev, *plan, lead=(coeffs.shape[0],))
-    _check_k1_alignment({"pool": pool}, coeffs, nblocks, intra_blk)
+    _check_alignment("K1", {"pool": pool}, {"coeffs": coeffs}, nblocks,
+                     intra_blk)
     lib = _build.load()
     with torch.cuda.device(dev):
         p = pool.data_ptr()
@@ -214,22 +231,45 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
     """The bytes of `reconstruct_picture` through K3 (signature and
     semantics of `video_recon.reconstruct_picture_multi`): the residual
     from K2 (`pallas_idct=True`, as the reference's default) or from the
-    plain IDCT (False, where the reference takes XLA's), then one luma and
-    one Cb|Cr plane launch."""
+    plain IDCT (False, where the reference takes XLA's), then
+    `reconstruct_planes`."""
     plan = (coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v)
     if _device_kind(cur_flat) == "cpu":
         return video_recon.reconstruct_picture_multi(
             cur_flat, fwd_flat, bwd_flat, *plan, geom,
             pallas_idct=pallas_idct)
-    from . import _build
-
     dev = cur_flat.device
     _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
     _check_plan(geom, dev, *plan)
     blocks, counts = coeffs.view(-1, 64), nblocks.view(-1)
     res = idct_batch(blocks, counts) if pallas_idct \
         else video_recon.idct_batch(blocks, counts)
+    return reconstruct_planes(cur_flat, fwd_flat, bwd_flat,
+                              res.view(coeffs.shape), *plan[1:], geom)
+
+
+def reconstruct_planes(cur_flat, fwd_flat, bwd_flat, res, nblocks,
+                       intra_blk, src_sel, mv_h, mv_v,
+                       geom: FrameGeometry) -> torch.Tensor:
+    """K3's two plane launches (signature and semantics of
+    `video_recon.reconstruct_planes`): one picture from its residual
+    int32 [mb, 6, 64] into a new flat frame, the luma launch and the
+    Cb|Cr launch, which also writes the pad bytes from cur.  fwd and bwd
+    may be the same tensor; the output never aliases an input.  Both
+    launches count in `reconstruct_picture_multi.launches`."""
+    plan = (res, nblocks, intra_blk, src_sel, mv_h, mv_v)
+    if _device_kind(cur_flat) == "cpu":
+        return video_recon.reconstruct_planes(
+            cur_flat, fwd_flat, bwd_flat, *plan, geom)
+    from . import _build
+
+    dev = cur_flat.device
+    _check_frames(geom, dev, cur=cur_flat, fwd=fwd_flat, bwd=bwd_flat)
+    _check_plan(geom, dev, *plan, blocks="res")
     out = torch.empty_like(cur_flat)
+    _check_alignment("K3", {"cur": cur_flat, "fwd": fwd_flat,
+                            "bwd": bwd_flat, "out": out},
+                     {"res": res}, nblocks, intra_blk)
     lib = _build.load()
     with torch.cuda.device(dev):
         for chroma in (0, 1):
@@ -240,9 +280,7 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs, nblocks,
                 mv_v.data_ptr(), out.data_ptr(), geom.mb_width,
                 geom.mb_height, chroma, _stream(dev))
             reconstruct_picture_multi.launches += 1
-            _build.check(code, "reconstruct_picture_multi")
-    # Bytes [frame_size, total_size) carry over from the current frame.
-    out[geom.frame_size:].copy_(cur_flat[geom.frame_size:])
+            _build.check(code, "reconstruct_planes")
     return out
 
 

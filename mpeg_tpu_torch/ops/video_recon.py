@@ -20,7 +20,8 @@ import torch
 
 __all__ = ["FrameGeometry", "idct_batch", "mb_window_starts",
            "reconstruct_picture", "reconstruct_picture_multi",
-           "reconstruct_pictures", "reconstruct_plane"]
+           "reconstruct_pictures", "reconstruct_plane",
+           "reconstruct_planes"]
 
 
 @dataclass(frozen=True)
@@ -358,10 +359,24 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs,
                               geom: FrameGeometry,
                               pallas_idct: bool = True) -> torch.Tensor:
     """The bytes of `reconstruct_picture` in three passes: the batched
-    IDCT, one luma plane pass and one fused Cb|Cr pass.  `pallas_idct`
-    names the IDCT the reference takes (its Pallas kernel or XLA's); both
-    are this module's `idct_batch` here."""
+    IDCT, then `reconstruct_planes` (one luma plane pass and one fused
+    Cb|Cr pass).  `pallas_idct` names the IDCT the reference takes (its
+    Pallas kernel or XLA's); both are this module's `idct_batch` here."""
     del pallas_idct
+    return reconstruct_planes(cur_flat, fwd_flat, bwd_flat,
+                              idct_batch(coeffs, nblocks), nblocks,
+                              intra_blk, src_sel, mv_h, mv_v, geom)
+
+
+def reconstruct_planes(cur_flat, fwd_flat, bwd_flat, res, nblocks,
+                       intra_blk, src_sel, mv_h, mv_v,
+                       geom: FrameGeometry) -> torch.Tensor:
+    """MC, residual add and clamp of one picture from its residual (the
+    plain version of K3's two plane launches): res int32 [mb, 6, 64], the
+    IDCT of the coefficients (an uncoded block's residual is never read);
+    the other arguments as `reconstruct_picture`.  Returns the whole flat
+    frame, uint8 [total_size], its pad bytes [frame_size, total_size)
+    carried over from cur_flat."""
     src_stack = torch.cat([fwd_flat, bwd_flat])
     src_len = src_stack.shape[0]
 
@@ -369,8 +384,6 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs,
     cm_h, cm_v = _trunc_div2(mv_h), _trunc_div2(mv_v)
     chp, cvp, coh, cov = cm_h >> 1, cm_v >> 1, cm_h & 1, cm_v & 1
     sel_bwd = src_sel == 2
-
-    vals = idct_batch(coeffs, nblocks)                       # [mb, 6, 64]
     coded = (nblocks > 0).to(torch.int32)
 
     lw, cw = geom.luma_width, geom.chroma_width
@@ -383,7 +396,7 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs,
 
     ys_y, xs_y = mb_window_starts(sel_bwd, hp, vp, 0, lw, 16, geom, src_len)
     out_y = reconstruct_plane(
-        src_stack, cur_y, _luma_blocks_to_plane(vals[:, :4], geom),
+        src_stack, cur_y, _luma_blocks_to_plane(res[:, :4], geom),
         _per_px_luma(coded[:, :4], geom),
         _per_px_luma(intra_blk[:, :4], geom),
         ys_y, xs_y, g(oh), g(ov), g(src_sel), 16, lw)
@@ -397,8 +410,8 @@ def reconstruct_picture_multi(cur_flat, fwd_flat, bwd_flat, coeffs,
     cat = lambda a, b: torch.cat([a, b])                     # noqa: E731
     out_c = reconstruct_plane(
         src_stack, cat(cur_cb, cur_cr),
-        cat(_chroma_blocks_to_plane(vals[:, 4], geom),
-            _chroma_blocks_to_plane(vals[:, 5], geom)),
+        cat(_chroma_blocks_to_plane(res[:, 4], geom),
+            _chroma_blocks_to_plane(res[:, 5], geom)),
         cat(_per_px_chroma(coded[:, 4], geom),
             _per_px_chroma(coded[:, 5], geom)),
         cat(_per_px_chroma(intra_blk[:, 4], geom),

@@ -182,37 +182,45 @@ def test_k1_skips_uncoded_blocks_with_junk(size):
         assert torch.equal(got, want), f"{size} trial {trial}"
 
 
-def _edge_plan(geom, rng, edge: str):
-    """A plan whose every macroblock's luma window starts at a chosen
-    flat place: past the end of a row ("row_end": the taps continue into
-    the next row), in the last rows of the [fwd | bwd] stack ("bottom":
-    rows clamp to rows2 - 2 and the c/d taps and the row ends reach past
-    2 * total, where they read 0) or above the first row ("top": rows
-    clamp to 0).  Half-pel bits and src_sel vary; the chroma windows
-    follow from the halved vectors."""
+def _edge_plan(geom, rng, edge: str, plane: str = "luma"):
+    """A plan whose every macroblock's window in `plane` starts at a
+    chosen flat place: past the end of a row ("row_end": the taps
+    continue into the next row), in the last rows of the [fwd | bwd]
+    stack ("bottom": rows clamp to rows2 - 2 and the c/d taps and the row
+    ends reach past 2 * total, where they read 0) or above the first row
+    ("top": rows clamp to 0).  Half-pel bits and src_sel vary.  For
+    "luma" the chroma windows follow from the halved vectors; for
+    "chroma" the vectors are twice the chroma ones, so the Cr window
+    (Cb for "top") lands there and the luma windows follow."""
     from mpeg_tpu_torch.video import _PicturePlan
 
     mb = geom.mb_size
-    lw = geom.luma_width
-    rows2 = 2 * geom.total_size // lw
+    luma = plane == "luma"
+    stride = geom.luma_width if luma else geom.chroma_width
+    bw = 16 if luma else 8
+    rows2 = 2 * geom.total_size // stride
+    base = 0 if luma else geom.luma_size + (
+        geom.chroma_size if edge != "top" else 0)
     p = _PicturePlan(mb)
     p.coeffs[:] = rng.integers(-2047 * 32, 2047 * 32, (mb, 6, 64))
     p.nblocks[:] = rng.integers(0, 12, (mb, 6))
     p.src_sel[:] = rng.integers(1, 3, mb)
     for m in range(mb):
         mby, mbx = divmod(m, geom.mb_width)
-        row0 = mby * 16 + (geom.total_size // lw if p.src_sel[m] == 2 else 0)
+        row0 = base // stride + mby * bw + (
+            geom.total_size // stride if p.src_sel[m] == 2 else 0)
         if edge == "row_end":
-            dh = lw - mbx * 16 - int(rng.integers(1, 17))
+            dh = stride - mbx * bw - int(rng.integers(1, bw + 1))
             dv = int(rng.integers(-2, 3))
         elif edge == "bottom":
-            dh = int(rng.integers(-mbx * 16, lw - mbx * 16))
+            dh = int(rng.integers(-mbx * bw, stride - mbx * bw))
             dv = rows2 - 1 - int(rng.integers(0, 20)) - row0
         else:
-            dh = int(rng.integers(-mbx * 16, lw - mbx * 16))
+            dh = int(rng.integers(-mbx * bw, stride - mbx * bw))
             dv = -row0 - int(rng.integers(-4, 30))
-        p.mv_h[m] = 2 * dh + int(rng.integers(0, 2))
-        p.mv_v[m] = 2 * dv + int(rng.integers(0, 2))
+        mv = (2 * dh + int(rng.integers(0, 2)),
+              2 * dv + int(rng.integers(0, 2)))
+        p.mv_h[m], p.mv_v[m] = mv if luma else (2 * mv[0], 2 * mv[1])
     return p
 
 
@@ -326,3 +334,127 @@ def test_decoder_golden_on_card():
     assert len(frames) == 260
     assert h.sum64() == 0xEA6D7FCB1340BA3F
     assert cuda_kernels.reconstruct_picture.launches == len(dec._types)
+
+
+def _k3_both(cur, fwd, bwd, args, geom):
+    """K3 twice (the whole path, then the plane launches on the plain
+    residual), each with its launch counts, against the plain version;
+    the pad bytes equal cur's."""
+    want = tvr.reconstruct_planes(cur, fwd, bwd, tvr.idct_batch(*args[:2]),
+                                  *args[1:], geom)
+    cuda_kernels.reset_launches()
+    got = cuda_kernels.reconstruct_picture_multi(cur, fwd, bwd, *args, geom)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.reconstruct_picture_multi.launches,
+            cuda_kernels.idct_batch.launches,
+            cuda_kernels.reconstruct_picture.launches) == (2, 1, 0)
+    assert torch.equal(got, want)
+    res = tvr.idct_batch(*args[:2])
+    planes = cuda_kernels.reconstruct_planes(cur, fwd, bwd, res, *args[1:],
+                                             geom)
+    torch.cuda.synchronize()
+    assert cuda_kernels.reconstruct_picture_multi.launches == 4
+    assert torch.equal(planes, want)
+    assert torch.equal(got[geom.frame_size:], cur[geom.frame_size:])
+    return got
+
+
+def test_k3_fixture_pictures_match_plain():
+    """K3 on the 1080p fixture's 32 real pictures (3 I, 29 P), byte-equal
+    to the plain version, 2 plane launches and 1 K2 a picture."""
+    dev = _card()
+    geom, pics = _fixture_pictures(dev)
+    assert len(pics) == 32
+    for c, f, b, a in pics:
+        _k3_both(c, f, b, a, geom)
+
+
+@pytest.mark.parametrize("size", [(80, 48), (272, 64), (1920, 1080)])
+def test_k3_skips_uncoded_blocks_with_junk(size):
+    """Uncoded blocks (nblocks <= 0, some negative) keep nonzero junk
+    coefficients, so K2 gives them a junk residual, and their intra flags
+    are set; the plane launches given an all-junk residual there too: K3
+    must read none of it."""
+    dev = _card()
+    rng = np.random.default_rng(22)
+    geom = FrameGeometry.for_size(*size)
+    cur, fwd, bwd = (torch.from_numpy(rng.integers(0, 256, geom.total_size)
+                                      .astype(np.uint8)).to(dev)
+                     for _ in range(3))
+    for trial in range(3):
+        plan = random_plan(geom, rng, 1)
+        uncoded = rng.random(plan.nblocks.shape) < 0.6
+        plan.nblocks[uncoded] = rng.integers(-3, 1, int(uncoded.sum()))
+        plan.intra_blk[:] = rng.integers(0, 2, plan.intra_blk.shape)
+        if trial == 2:
+            plan.src_sel[:] = 0
+        args = plan_args(plan, dev)
+        _k3_both(cur, fwd, bwd, args, geom)
+        res = torch.where((args[1] > 0)[..., None],
+                          tvr.idct_batch(*args[:2]),
+                          torch.from_numpy(rng.integers(
+                              -2 ** 31, 2 ** 31, (geom.mb_size, 6, 64),
+                              dtype=np.int64).astype(np.int32)).to(dev))
+        got = cuda_kernels.reconstruct_planes(cur, fwd, bwd, res, *args[1:],
+                                              geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tvr.reconstruct_picture(cur, fwd, bwd, *args,
+                                                        geom))
+
+
+@pytest.mark.parametrize("size", [(80, 48), (272, 64), (1920, 1080)])
+@pytest.mark.parametrize("edge", ["row_end", "bottom", "top"])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+def test_k3_windows_at_the_edges(size, edge, plane):
+    """MC windows that cross row ends, clamp rows and reach past
+    2 * total, aimed at the luma launch's and at the Cb|Cr launch's
+    windows: K3 byte-equal to the plain version, and K1 (which shares
+    the staging) too.  80x48 and 272x64 have an odd mb_width."""
+    dev = _card()
+    rng = np.random.default_rng(
+        [*size, ("row_end", "bottom", "top").index(edge), plane == "luma"])
+    geom = FrameGeometry.for_size(*size)
+    cur, fwd, bwd = (torch.from_numpy(rng.integers(0, 256, geom.total_size)
+                                      .astype(np.uint8)).to(dev)
+                     for _ in range(3))
+    for trial in range(2):
+        args = plan_args(_edge_plan(geom, rng, edge, plane), dev)
+        f = bwd if trial else fwd        # a reference step: fwd aliases bwd
+        got = _k3_both(cur, f, bwd, args, geom)
+        k1 = cuda_kernels.reconstruct_picture(cur, f, bwd, *args, geom)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, got), f"{size} {edge} {plane} trial {trial}"
+
+
+def test_k3_refuses_misaligned_inputs():
+    """The plane launches copy 16-byte granules: frames and residual that
+    start off 16 bytes are refused, as are block counts off 8 bytes."""
+    dev = _card()
+    geom = FrameGeometry.for_size(80, 48)
+    frame = torch.zeros(geom.total_size, dtype=torch.uint8, device=dev)
+    args = list(plan_args(random_plan(geom, np.random.default_rng(1), 1),
+                          dev))
+    res = tvr.idct_batch(*args[:2])
+    shifted = torch.zeros(geom.total_size + 8, dtype=torch.uint8,
+                          device=dev)[8:]
+    cuda_kernels.reset_launches()
+    for frames in ((shifted, frame, frame), (frame, shifted, frame),
+                   (frame, frame, shifted)):
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_kernels.reconstruct_planes(*frames, res, *args[1:], geom)
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_kernels.reconstruct_picture_multi(*frames, *args, geom)
+    res_off = torch.zeros(res.numel() + 2, dtype=torch.int32,
+                          device=dev)[2:].view(res.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernels.reconstruct_planes(frame, frame, frame, res_off,
+                                        *args[1:], geom)
+    odd = torch.zeros(args[1].numel() + 1, dtype=torch.int32,
+                      device=dev)[1:].view(args[1].shape)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_kernels.reconstruct_planes(frame, frame, frame, res, odd,
+                                        *args[2:], geom)
+    with pytest.raises(ValueError):
+        cuda_kernels.reconstruct_planes(frame, frame, frame, res.cpu(),
+                                        *args[1:], geom)
+    assert cuda_kernels.reconstruct_picture_multi.launches == 0
