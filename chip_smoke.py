@@ -20,7 +20,17 @@ bound, then drives every path of the port and checks its output:
   decodes and the goldens;
 - `multistream_1080p`: 64 streams of the 1080p fixture, window 2, every
   frame against the C++ host decoder, then timed and profiled;
-- `rgba`: the 1080p fixture with `emit_rgba=True` against numpy.
+- `rgba`: the 1080p fixture with `emit_rgba=True` against numpy;
+- `audio`: MP2 through `Audio(device="cuda")` and `BatchAudioDecoder`
+  (f32, s16, `out_device`) against the no-FMA golden and each other,
+  timed, with the synthesis filterbank's card ms and launches a frame
+  and a window;
+- `interactive_golden`: `Video(device="cuda")` (both parsers) and
+  `MPEG(test.mpg, device="cuda")` against the goldens, K1 launched once
+  a picture, and a seek;
+- `interactive_1080p`: a 1080p A/V program stream (the 1080p fixture and
+  test.mp2, muxed by tools/ps_mux.py) through `MPEG.decode(tick)`, video
+  against the C++ host decoder and audio against the CPU, timed.
 
 `--baseline` (which may be repeated) also builds K1 and K3 from another
 copy of `recon.cu` (an earlier commit's, or an edited copy with another
@@ -30,8 +40,10 @@ pictures, the adversarial plan and (K1) 64-stream launches.
 
 Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
 plain version's `plain_ms` is the wall of back-to-back calls by CUDA
-events (`cuda_ms`), its own host waits included.  torch.profiler only
-measures the two profiled decode passes' idle share.
+events (`cuda_ms`), its own host waits included.  The MP2 filterbank (a
+few hundred plain torch launches a call) is timed on the card by CUDA
+events around CUDA-graph replays (`graph_ms`).  torch.profiler only
+measures the profiled decode passes' idle share.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after.  Every phase prints one JSON line; any failure raises,
@@ -55,6 +67,10 @@ TESTDATA = os.path.join(REPO, "tests", "testdata")
 
 GOLDEN_VIDEO = (260, 0xEA6D7FCB1340BA3F)   # test.mpeg1video
 GOLDEN_PS = (278, 0xD00818EDCAFDC702)      # test.mpg (tests/test_torch_batch.py)
+GOLDEN_AUDIO = (355, 0xF1B76CDF8E6CDEA5)   # test.mp2, the no-FMA golden
+# test.mpg's audio through MPEG.decode_audio, pinned from the JAX package's
+# MPEG(backend="numpy") by tests/test_torch_interactive.py.
+GOLDEN_PS_AUDIO = (355, 0xF1B76CDF8E6CDEA5)
 E2E_PASSES = 3
 N_STREAMS = 64        # bench.py secondary_64stream: 64 x 1080p, window 2
 # Pictures kept of the 32-picture 1080p fixture, stream s taking entry
@@ -117,6 +133,34 @@ def queued_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Milliseconds of card time per call of `fn`, by CUDA events around
+    `iters` back-to-back replays of one CUDA graph of it.  For functions
+    of hundreds of small launches, which `queued_ms` cannot time: the
+    host blocks once the launch queue is full, and the card then waits
+    for the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                       # warm-up: cached tables, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -1024,6 +1068,359 @@ def phase_rgba() -> None:
           "equal_to_numpy": True})
 
 
+def count_launches(fn) -> int:
+    """Kernel launches of one call of `fn`, counted as the aten ops it
+    dispatches that are not views: each elementwise op, copy, gather,
+    fill or cat of the filterbank is one launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _passes(run, n: int = E2E_PASSES) -> list:
+    """Walls (s) of `n` calls of `run` after one untimed warm-up call,
+    each ended by a synchronize."""
+    import torch
+
+    walls = []
+    for i in range(1 + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def _pcm_hash(chunks) -> int:
+    from mpeg_tpu_torch.utils import Fnv1a64
+
+    h = Fnv1a64()
+    for c in chunks:
+        h.write(c.astype("<f4").tobytes())
+    return h.sum64()
+
+
+def phase_audio() -> dict:
+    """MP2 on the card: `Audio(device="cuda")` on test.mp2 on the no-FMA
+    golden; `BatchAudioDecoder` at window 32, f32 on the golden, s16
+    equal to the s16 the host derives from those samples, and
+    `out_device=True` equal to both.  Then timed (median of 3 after a
+    warm-up): Audio.decode and BatchAudioDecoder frames/s, and the
+    filterbank's card ms (`graph_ms`), wall ms (`cuda_ms`) and launches
+    (`count_launches`) a frame (`synthesize_frame` + `finalize`) and a
+    32-frame window (`synthesize_window` + `finalize`)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch import Audio, Buffer
+    from mpeg_tpu_torch.device import gpu_name_and_power_limit
+    from mpeg_tpu_torch.ops import filterbank
+    from mpeg_tpu_torch.parallel import BatchAudioDecoder
+
+    data = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
+
+    def decode_audio():
+        buf = Buffer(io.BytesIO(data))
+        buf.set_load_callback(buf.load_reader_callback)
+        audio = Audio(buf, device="cuda")
+        frames = []
+        while (smp := audio.decode()) is not None:
+            frames.append(smp.interleaved)
+        return frames
+
+    frames = decode_audio()
+    if (len(frames), _pcm_hash(frames)) != GOLDEN_AUDIO:
+        fail(f"Audio: {len(frames)} frames, hash {_pcm_hash(frames):#018x}")
+    f32 = BatchAudioDecoder(data, window=32, device="cuda").decode_all()
+    if _pcm_hash([f32]) != GOLDEN_AUDIO[1] or \
+            not np.array_equal(f32, np.concatenate(frames)):
+        fail(f"BatchAudioDecoder f32: hash {_pcm_hash([f32]):#018x}")
+    s16 = BatchAudioDecoder(data, window=32, out_format="s16",
+                            device="cuda").decode_all()
+    want_s16 = np.trunc(np.where(f32 < 0, f32 * np.float32(0x8000),
+                                 f32 * np.float32(0x7FFF))).astype(np.int16)
+    if not np.array_equal(s16, want_s16):
+        fail("BatchAudioDecoder s16 differs from the host s16 of f32")
+    for fmt, want in (("f32", f32), ("s16", s16)):
+        dev = BatchAudioDecoder(data, window=32, out_format=fmt,
+                                out_device=True, device="cuda").decode_all()
+        if dev.device.type != "cuda" or \
+                not np.array_equal(dev.cpu().numpy(), want):
+            fail(f"BatchAudioDecoder out_device {fmt} differs")
+
+    n = len(frames)
+    audio_walls = _passes(decode_audio)
+    batch_walls = _passes(lambda: BatchAudioDecoder(
+        data, window=32, device="cuda").decode_all())
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.integers(-1 << 17, 1 << 17, (32 * 36, 2, 32))
+                          .astype(np.int32)).to(dev)
+    hist = torch.zeros((15, 2, 64), dtype=torch.float32, device=dev)
+    ring = torch.zeros((2, 1024), dtype=torch.float32, device=dev)
+
+    def window():
+        return filterbank.finalize(filterbank.synthesize_window(xs, hist)[0])
+
+    def frame():
+        return filterbank.finalize(
+            filterbank.synthesize_frame(xs[:36], ring, 0)[0])
+
+    out = {"phase": "audio", "card": gpu_name_and_power_limit(),
+           "frames": n, "hash": f"{_pcm_hash(frames):#018x}",
+           "want": f"{GOLDEN_AUDIO[1]:#018x}", "batch_f32_golden": True,
+           "batch_s16_equal_host_s16": True, "out_device_equal": True,
+           "audio_fps_median": n / statistics.median(audio_walls),
+           "audio_walls_s": audio_walls,
+           "batch_fps_median": n / statistics.median(batch_walls),
+           "batch_walls_s": batch_walls,
+           "window_frames": 32,
+           "window_ms": graph_ms(window, 20),
+           "window_wall_ms": cuda_ms(window, 20),
+           "window_launches": count_launches(window),
+           "frame_ms": graph_ms(frame, 50),
+           "frame_wall_ms": cuda_ms(frame, 50),
+           "frame_launches": count_launches(frame),
+           "timed_by": {"window_ms": "cuda_events_graph_replay",
+                        "window_wall_ms": "cuda_events_wall"}}
+    emit(out)
+    return out
+
+
+def _video_pictures(data: bytes) -> int:
+    """The pictures of an ES or PS, counted by the C++ parser."""
+    from mpeg_tpu_torch.native import NativePipeline, NativeVideoParser
+
+    parser = NativePipeline(data) if data[:4] == b"\x00\x00\x01\xBA" \
+        else NativeVideoParser(data)
+    n = 0
+    while parser.parse_next_plan() is not None:
+        n += 1
+    return n
+
+
+def phase_interactive_golden() -> dict:
+    """The reference-shaped API on the card: `Video(device="cuda")` on
+    test.mpeg1video with both parsers, and `MPEG(test.mpg,
+    device="cuda")` (decode_video, decode_audio), each on its golden with
+    K1 launched once a picture; `seek(3.0, True)` fires the video
+    callback once."""
+    import io
+
+    from mpeg_tpu_torch import MPEG, Buffer, Video
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.utils import Fnv1a64
+
+    es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
+    ps = open(os.path.join(TESTDATA, "test.mpg"), "rb").read()
+    out = {"phase": "interactive_golden"}
+
+    def frames_hash(decode):
+        h, n = Fnv1a64(), 0
+        while (f := decode()) is not None:
+            h.write(f.y.tobytes())
+            h.write(f.cb.tobytes())
+            h.write(f.cr.tobytes())
+            n += 1
+        return n, h.sum64()
+
+    for parser in ("native", "python"):
+        buf = Buffer(io.BytesIO(es))
+        buf.set_load_callback(buf.load_reader_callback)
+        video = Video(buf, parser=parser, device="cuda")
+        cuda_kernels.reset_launches()
+        got = frames_hash(video.decode)
+        launches = cuda_kernels.reconstruct_picture.launches
+        out[f"video_{parser}"] = {"frames": got[0], "hash": f"{got[1]:#018x}",
+                                  "k1_launches": launches}
+        if got != GOLDEN_VIDEO or launches != _video_pictures(es):
+            fail(f"Video({parser}): {got[0]} frames, hash {got[1]:#018x}, "
+                 f"K1 launched {launches} times")
+
+    m = MPEG(ps, device="cuda")
+    m.set_audio_enabled(False)
+    cuda_kernels.reset_launches()
+    got = frames_hash(m.decode_video)
+    launches = cuda_kernels.reconstruct_picture.launches
+    out["mpeg_video"] = {"frames": got[0], "hash": f"{got[1]:#018x}",
+                         "k1_launches": launches}
+    if got != GOLDEN_PS or launches != _video_pictures(ps):
+        fail(f"MPEG.decode_video: {got[0]} frames, hash {got[1]:#018x}, "
+             f"K1 launched {launches} times")
+    m = MPEG(ps, device="cuda")
+    m.set_video_enabled(False)
+    pcm = []
+    while (smp := m.decode_audio()) is not None:
+        pcm.append(smp.interleaved)
+    out["mpeg_audio"] = {"frames": len(pcm), "hash": f"{_pcm_hash(pcm):#018x}"}
+    if (len(pcm), _pcm_hash(pcm)) != GOLDEN_PS_AUDIO:
+        fail(f"MPEG.decode_audio: {len(pcm)} frames, hash "
+             f"{_pcm_hash(pcm):#018x}")
+    m = MPEG(ps, device="cuda")
+    count = [0]
+    m.set_video_callback(lambda mp, f: count.__setitem__(0, count[0] + 1))
+    m.set_audio_callback(lambda mp, smp: None)
+    if not m.seek(3.0, True) or count[0] != 1:
+        fail(f"seek(3.0, True) fired the video callback {count[0]} times")
+    out["seek_callbacks"] = count[0]
+    emit(out)
+    return out
+
+
+def _ps_1080p() -> bytes:
+    """One pass of the 1080p fixture's 32 pictures and test.mp2's first
+    seconds, muxed into an MPEG-PS (tools/ps_mux.py, test tooling)."""
+    import io
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from ps_mux import mux
+
+    seconds = 32 / 30.0
+    out = io.BytesIO()
+    mux(_fixture_1080p(), open(os.path.join(TESTDATA, "test.mp2"),
+                               "rb").read(),
+        video_seconds=seconds, audio_seconds=355 * 1152 / 44100.0,
+        target_seconds=seconds, out=out)
+    return out.getvalue()
+
+
+def _clock_decode(m, on_video, on_audio, fps: float = 30.0) -> None:
+    """`MPEG.decode(1 / fps)` with both callbacks until the stream ends."""
+    m.set_video_callback(on_video)
+    m.set_audio_callback(on_audio)
+    steps = 0
+    while not m.done:
+        m.decode(1.0 / fps)
+        steps += 1
+        if steps > 10_000:
+            fail("the clock-driven decode did not end")
+
+
+def phase_interactive_1080p() -> dict:
+    """The reference-shaped API at full width: a 1080p A/V PS through
+    `MPEG(..., device="cuda").decode(tick)` with both callbacks, every
+    video frame against the C++ host decoder on the 1080p ES and the
+    audio against `MPEG(..., device="cpu")` on the same bytes, K1's
+    launches read from that run; then timed (median of 3 after a
+    warm-up): video and audio frames/s, the share of the wall in the host
+    parse (the pipeline's picture and frame pulls), in each picture's
+    blob pack, transfer and launches (`Video._reconstruct`) and in each
+    audio frame's synthesis (`Audio._synthesize`)."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch import MPEG
+    from mpeg_tpu_torch.device import gpu_name_and_power_limit
+    from mpeg_tpu_torch.ops import cuda_kernels
+
+    ps = _ps_1080p()
+    want = _native_frames(_fixture_1080p())
+    cpu_pcm = []
+    _clock_decode(MPEG(ps, device="cpu"), None,
+                  lambda _m, smp: cpu_pcm.append(smp.interleaved.copy()))
+
+    frames, pcm = [], []
+    m = MPEG(ps, device="cuda")
+    cuda_kernels.reset_launches()
+    _clock_decode(m, lambda _m, f: frames.append(f.flat.clone()),
+                  lambda _m, smp: pcm.append(smp.interleaved.copy()))
+    torch.cuda.synchronize()
+    launches = cuda_kernels.reconstruct_picture.launches
+    pictures = _video_pictures(ps)
+    geom = m.video().geom
+    _check_against_host(frames, want, geom.frame_size, "interactive 1080p")
+    if len(frames) != 32 or launches != pictures:
+        fail(f"interactive 1080p: {len(frames)} frames, K1 launched "
+             f"{launches} times for {pictures} pictures")
+    if not pcm or len(pcm) != len(cpu_pcm) or \
+            not np.array_equal(np.concatenate(pcm), np.concatenate(cpu_pcm)):
+        fail(f"interactive 1080p audio: {len(pcm)} frames on the card, "
+             f"{len(cpu_pcm)} on the CPU, or they differ")
+    del frames
+
+    passes = []
+
+    def timed_pass():
+        m = MPEG(ps, device="cuda")
+        parse = [0.0]
+        m.has_headers()
+
+        def timed(fn):
+            def run(*a):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    parse[0] += time.perf_counter() - t0
+            return run
+
+        m.video()._native_next_plan = timed(m.video()._native_next_plan)
+        m.audio()._native_next_frame = timed(m.audio()._native_next_frame)
+        recon = [0.0]
+        video_recon = m.video()._reconstruct
+
+        def timed_recon():
+            t0 = time.perf_counter()
+            video_recon()
+            recon[0] += time.perf_counter() - t0
+
+        m.video()._reconstruct = timed_recon
+        synth = [0.0]
+        audio_synth = m.audio()._synthesize
+
+        def timed_synth(samples):
+            t0 = time.perf_counter()
+            audio_synth(samples)
+            synth[0] += time.perf_counter() - t0
+
+        m.audio()._synthesize = timed_synth
+        counts = [0, 0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _clock_decode(m, lambda _m, f: counts.__setitem__(0, counts[0] + 1),
+                      lambda _m, smp: counts.__setitem__(1, counts[1] + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        passes.append({"frames": counts[0], "audio_frames": counts[1],
+                       "wall_s": wall, "fps": counts[0] / wall,
+                       "audio_fps": counts[1] / wall, "parse_s": parse[0],
+                       "parse_share": parse[0] / wall,
+                       "pack_and_enqueue_s": recon[0],
+                       "pack_and_enqueue_share": recon[0] / wall,
+                       "synthesis_s": synth[0],
+                       "synthesis_share": synth[0] / wall})
+
+    _passes(timed_pass)
+    passes = passes[1:]                    # the warm-up pass: not timed
+    med = lambda k: statistics.median(p[k] for p in passes)  # noqa: E731
+    out = {"phase": "interactive_1080p", "card": gpu_name_and_power_limit(),
+           "bytes": len(ps), "frames": 32, "pictures": pictures,
+           "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
+           "audio_equal_to_cpu": True, "k1_launches": launches,
+           "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
+           "parse_share_median": med("parse_share"),
+           "pack_and_enqueue_share_median": med("pack_and_enqueue_share"),
+           "synthesis_share_median": med("synthesis_share"),
+           "passes": passes}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1056,6 +1453,9 @@ def main() -> int:
     phase_multistream_golden()
     streams = phase_multistream_1080p()
     phase_rgba()
+    phase_audio()
+    phase_interactive_golden()
+    interactive = phase_interactive_1080p()
     # The three decodes' idle share, or that the profiler recorded nothing.
     emit({"idle_share": {
         name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
@@ -1088,7 +1488,8 @@ def main() -> int:
             parity["k1_streams_plain_ms"], parity["k1_streams_bound_ms"],
             fixture_ms=fixture["k1_ms"],
             fixture_plain_ms=fixture["k1_plain_ms"],
-            fixture_bound_ms=fixture["bound_ms"]),
+            fixture_bound_ms=fixture["bound_ms"],
+            interactive_launches=interactive["k1_launches"]),
         row("idct_batch", 93, multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
             parity["k2_plain_ms"], parity["k2_bound_ms"]),

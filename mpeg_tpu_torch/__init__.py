@@ -1,11 +1,15 @@
-"""mpeg_tpu_torch — the MPEG-1 video decoder in PyTorch, for NVIDIA Hopper.
+"""mpeg_tpu_torch — the MPEG-1 video / MP2 audio / MPEG-PS decoder in
+PyTorch, for NVIDIA Hopper.
 
-A port of `mpeg_tpu`'s windowed and many-stream video decode that
-imports nothing of `mpeg_tpu` or jax.  It keeps its own copy of the host
-half under the names of its counterparts: the C++ parser and PS demuxer
-(`csrc/host/`, bound by `native`), the Python plan parser (`video`,
-`buffer`, `demux`, `tables`), `config`, `utils` and the window-blob
-layout in `parallel.batch`.  The code that ran on the TPU is ported:
+A port of `mpeg_tpu` that imports nothing of `mpeg_tpu` or jax: the
+reference-shaped API (`MPEG`, `Video`, `Audio`, `Frame`, `Samples`), the
+windowed throughput decoders (`parallel.BatchVideoDecoder`,
+`parallel.BatchAudioDecoder`) and the many-stream video decode.  It keeps
+its own copy of the host half under the names of its counterparts: the
+C++ parsers and PS demuxer (`csrc/host/`, bound by `native`), the Python
+parsers (`video`, `audio`, `buffer`, `demux`, `tables`), the PS plumbing
+(`mpeg`, `pipeline`), `config`, `utils` and the window-blob layout in
+`parallel.batch`.  The code that ran on the TPU is ported:
 
 - `ops.video_recon`: plain PyTorch versions of the exact integer IDCT and
   the picture reconstructs (the CPU path and the reference the kernels
@@ -13,6 +17,8 @@ layout in `parallel.batch`.  The code that ran on the TPU is ported:
 - `ops.cuda_kernels`: wrappers around the hand-written CUDA kernels in
   `csrc/recon.cu` (built with nvcc on first use, see `ops._build`);
 - `ops.color`: YCbCr -> RGBA;
+- `ops.filterbank`: the MP2 synthesis filterbank in plain torch ops,
+  bit-exact (no FMA; see its docstring);
 - `parallel.batch`: the window-blob densify, the per-window decode module
   and `BatchVideoDecoder`;
 - `parallel.multistream`: the lockstep many-stream decode module and
@@ -23,11 +29,23 @@ layout in `parallel.batch`.  The code that ran on the TPU is ported:
 The decoders run on the card by default (`device="cuda"`, which raises
 without one); `device="cpu"` runs the plain versions.
 
+    import mpeg_tpu_torch as mpeg
+    m = mpeg.MPEG(open("video.mpg", "rb"))
+    frame = m.decode_video()      # Frame: .flat on the card, .y/.cb/.cr numpy
+    samples = m.decode_audio()    # Samples: .interleaved float32 numpy
+
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
     dec = BatchVideoDecoder(open("clip.m1v", "rb").read(), window=16)
     frames = dec.decode_all()     # flat uint8 [total_size] CUDA tensors
 """
 
+from .audio import SAMPLES_PER_FRAME, Audio, AudioFormat, Samples
+from .buffer import Buffer
+from .config import Config
 from .device import probe, resolve_device
+from .mpeg import MPEG, InvalidMpegError
+from .video import Frame, Video
 
-__all__ = ["probe", "resolve_device"]
+__all__ = ["MPEG", "InvalidMpegError", "Config", "Video", "Frame", "Audio",
+           "AudioFormat", "Samples", "SAMPLES_PER_FRAME", "Buffer", "probe",
+           "resolve_device"]

@@ -1,8 +1,13 @@
-"""Decoder defaults (the port's copy of `mpeg_tpu/config.py`, with what
-`BatchVideoDecoder` reads).
+"""Decoder defaults (the port's copy of `mpeg_tpu/config.py`).
 
-Pass a `Config` to `BatchVideoDecoder` to override its defaults in one
-place; explicit keyword arguments still win over the Config.
+Mirrors the reference's config mechanisms: `parser` selects the host
+parser, `BufferSize` is carried over verbatim, and the runtime setters
+(audio format/stream/lead time, loop, no-delay, probe size) live on the
+decoder objects as in the reference.  Pass a `Config` to `MPEG`, `Video`,
+`Audio` or `BatchVideoDecoder` to override their defaults in one place;
+explicit keyword arguments still win over the Config.  The device is an
+argument of each entry point (`device="cuda"` by default), not a field
+here.
 """
 
 from __future__ import annotations
@@ -12,12 +17,20 @@ from dataclasses import dataclass
 
 @dataclass
 class Config:
+    # Host parser: "native" (C++) or "python"; "auto" picks native when
+    # the shared object builds/loads.
+    parser: str = "auto"
+
     # Batched decode knobs.
     window: int = 32          # pictures per window blob
     transport: str = "blob"   # "blob" (window pool) | "dense" (still to port)
 
     # Buffer refill chunk (reference BufferSize, buffer.go:8-11).
     buffer_size: int = 128 * 1024
+
+    # Audio defaults (reference SetAudioFormat/SetAudioLeadTime).
+    audio_format: int = 0        # AudioFormat.F32N
+    audio_lead_time: float = 0.0
 
 
 DEFAULT = Config()

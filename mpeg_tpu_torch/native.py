@@ -1,10 +1,12 @@
 """ctypes binding of the C++ host parser (csrc/host/parser.cpp).
 
-The port's own copy of `mpeg_tpu/native.py`'s video side: the streaming
-elementary-stream parser (`NativeVideoParser`), the host-only decoder
-that the tests and `chip_smoke.py` compare frames with
-(`NativeHostDecoder`), and the MPEG-PS pipeline (`NativePipeline`).  All
-three emit the window-blob records the decoders ship to the device.
+The port's own copy of `mpeg_tpu/native.py`: the streaming
+elementary-stream parsers (`NativeVideoParser`, `NativeAudioParser`), the
+host-only decoder that the tests and `chip_smoke.py` compare frames with
+(`NativeHostDecoder`), the packet demuxer (`NativeDemuxer`) and the
+MPEG-PS pipeline (`NativePipeline`).  The video side emits the
+window-blob records the decoders ship to the device; the audio side the
+subband samples the synthesis filterbank takes.
 
 `csrc/host/parser.cpp` and `vlc_tables.h` are copies of `native/`'s
 sources; a fix to one goes into both.  g++ builds the library at first
@@ -132,6 +134,40 @@ def load() -> ctypes.CDLL:
     lib.pp_video_blob_emit.restype = ctypes.c_int
     lib.pp_audio_parse_frame.argtypes = [ctypes.c_void_p, p_i32]
     lib.pp_audio_parse_frame.restype = ctypes.c_int
+
+    lib.dx_create.restype = ctypes.c_void_p
+    lib.dx_destroy.argtypes = [ctypes.c_void_p]
+    lib.dx_feed.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                            ctypes.c_int64]
+    lib.dx_signal_end.argtypes = [ctypes.c_void_p]
+    for name in ("dx_has_headers", "dx_num_video_streams",
+                 "dx_num_audio_streams"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.dx_system_clock_ref.argtypes = [ctypes.c_void_p]
+    lib.dx_system_clock_ref.restype = ctypes.c_double
+    lib.dx_decode.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)]
+    lib.dx_decode.restype = ctypes.c_int
+    lib.dx_payload.argtypes = [ctypes.c_void_p]
+    lib.dx_payload.restype = ctypes.POINTER(ctypes.c_uint8)
+
+    lib.ap_create.restype = ctypes.c_void_p
+    lib.ap_destroy.argtypes = [ctypes.c_void_p]
+    lib.ap_feed.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                            ctypes.c_int64]
+    lib.ap_signal_end.argtypes = [ctypes.c_void_p]
+    for name in ("ap_has_header", "ap_samplerate", "ap_channels"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.ap_parse_frame.argtypes = [ctypes.c_void_p, p_i32]
+    lib.ap_parse_frame.restype = ctypes.c_int
+    lib.ap_rewind.argtypes = [ctypes.c_void_p]
+    lib.ap_unconsumed.argtypes = [ctypes.c_void_p]
+    lib.ap_unconsumed.restype = ctypes.c_int64
 
     _lib = lib
     return lib
@@ -309,6 +345,102 @@ class NativeHostDecoder(NativeVideoParser):
         if self._lib.vp_host_decode(self._h, out):
             return out
         return None
+
+
+class NativeAudioParser:
+    """Streaming native MP2 parser: feed ES bytes, pull subband samples
+    [36, 2, 32] int32 per frame (mirrors Audio._parse_frame)."""
+
+    def __init__(self, data: Optional[bytes] = None):
+        self._lib = load()
+        self._h = self._lib.ap_create()
+        if data is not None:
+            self.feed(data)
+            self.signal_end()
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.ap_destroy(self._h)
+            self._h = None
+
+    def feed(self, data: bytes) -> None:
+        self._lib.ap_feed(self._h, bytes(data), len(data))
+
+    def signal_end(self) -> None:
+        self._lib.ap_signal_end(self._h)
+
+    def has_header(self) -> bool:
+        return bool(self._lib.ap_has_header(self._h))
+
+    @property
+    def samplerate(self) -> int:
+        return self._lib.ap_samplerate(self._h)
+
+    @property
+    def channels(self) -> int:
+        return self._lib.ap_channels(self._h)
+
+    def rewind(self) -> None:
+        """Clear stream state, keep the header (audio.go:149-154)."""
+        self._lib.ap_rewind(self._h)
+
+    def unconsumed(self) -> int:
+        return int(self._lib.ap_unconsumed(self._h))
+
+    def parse_next_frame(self) -> Optional[np.ndarray]:
+        out = np.zeros((36, 2, 32), np.int32)
+        if self._lib.ap_parse_frame(self._h, out.reshape(-1)):
+            return out
+        return None
+
+
+class NativeDemuxer:
+    """Streaming native MPEG-PS demuxer: feed PS bytes, pull packets.
+
+    Mirrors the Python Demux's packet hot path (demux.py decode();
+    reference demux.go:478-584); seek/start-time/duration stay on the
+    Python demuxer (control plane)."""
+
+    def __init__(self, data: Optional[bytes] = None):
+        self._lib = load()
+        self._h = self._lib.dx_create()
+        if data is not None:
+            self.feed(data)
+            self.signal_end()
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.dx_destroy(self._h)
+            self._h = None
+
+    def feed(self, data: bytes) -> None:
+        self._lib.dx_feed(self._h, bytes(data), len(data))
+
+    def signal_end(self) -> None:
+        self._lib.dx_signal_end(self._h)
+
+    def has_headers(self) -> bool:
+        return bool(self._lib.dx_has_headers(self._h))
+
+    def get_num_video_streams(self) -> int:
+        self.has_headers()
+        return self._lib.dx_num_video_streams(self._h)
+
+    def get_num_audio_streams(self) -> int:
+        self.has_headers()
+        return self._lib.dx_num_audio_streams(self._h)
+
+    def decode(self):
+        """Next packet as (type, pts, payload bytes) or None."""
+        typ = ctypes.c_int32()
+        pts = ctypes.c_double()
+        length = ctypes.c_int64()
+        if not self._lib.dx_decode(self._h, ctypes.byref(typ),
+                                   ctypes.byref(pts), ctypes.byref(length)):
+            return None
+        payload = ctypes.string_at(self._lib.dx_payload(self._h),
+                                   length.value)
+        return typ.value, pts.value, payload
 
 
 class NativePipeline:

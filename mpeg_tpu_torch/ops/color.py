@@ -1,8 +1,9 @@
 """YCbCr -> RGBA color conversion in int32 torch ops.
 
-Port of `mpeg_tpu.ops.color` (`ycbcr_to_rgb_int`, `flat_frame_to_rgba`):
-the exact integer BT.601 conversion of Go's image/color.YCbCrToRGB, which
-the reference's Frame.RGBA reaches through image/draw.  JAX computes it in
+Port of `mpeg_tpu.ops.color` (`ycbcr_to_rgb_int`, `ycbcr420_to_rgba`,
+`flat_frame_to_rgba`): the exact integer BT.601 conversion of Go's
+image/color.YCbCrToRGB, which the reference's Frame.RGBA reaches through
+image/draw.  JAX computes it in
 `jnp` outside any Pallas kernel, so plain torch is its port; it runs on
 any torch device.  The fixed-point constants are Go's (91881/65536 =
 1.402 etc.).
@@ -14,7 +15,7 @@ import torch
 
 from .video_recon import FrameGeometry
 
-__all__ = ["flat_frame_to_rgba", "ycbcr_to_rgb_int"]
+__all__ = ["flat_frame_to_rgba", "ycbcr420_to_rgba", "ycbcr_to_rgb_int"]
 
 
 def _squash(c: torch.Tensor) -> torch.Tensor:
@@ -37,21 +38,28 @@ def ycbcr_to_rgb_int(y, cb, cr):
             _squash(yy1 + 116130 * cb1))
 
 
+def ycbcr420_to_rgba(y_plane, cb_plane, cr_plane, width: int, height: int):
+    """4:2:0 planes (macroblock-rounded, any leading axes) ->
+    [..., height, width, 4] RGBA uint8: each chroma sample covers a 2x2
+    luma block; alpha 255 (reference: `mpeg_tpu.ops.color.ycbcr420_to_rgba`,
+    Frame.RGBA)."""
+    rows = torch.arange(height, device=y_plane.device) // 2
+    cols = torch.arange(width, device=y_plane.device) // 2
+    up = lambda p: p[..., rows, :][..., cols]                # noqa: E731
+    r, g, b = ycbcr_to_rgb_int(y_plane[..., :height, :width], up(cb_plane),
+                               up(cr_plane))
+    return torch.stack([r, g, b, torch.full_like(r, 255)], dim=-1)
+
+
 def flat_frame_to_rgba(flat: torch.Tensor, geom: FrameGeometry):
     """Shared-layout flat frame buffers uint8 [..., total_size] ->
-    [..., height, width, 4] RGBA uint8 (4:2:0 chroma: each sample covers
-    a 2x2 luma block; alpha 255)."""
+    [..., height, width, 4] RGBA uint8."""
     lead = flat.shape[:-1]
     cb0 = geom.luma_size
     cr0 = geom.luma_size + geom.chroma_size
-    h, w = geom.height, geom.width
     y = flat[..., :cb0].reshape(*lead, geom.luma_height, geom.luma_width)
     cb = flat[..., cb0:cr0].reshape(*lead, geom.chroma_height,
                                     geom.chroma_width)
     cr = flat[..., cr0:geom.frame_size].reshape(*lead, geom.chroma_height,
                                                 geom.chroma_width)
-    rows = torch.arange(h, device=flat.device) // 2
-    cols = torch.arange(w, device=flat.device) // 2
-    up = lambda p: p[..., rows, :][..., cols]                # noqa: E731
-    r, g, b = ycbcr_to_rgb_int(y[..., :h, :w], up(cb), up(cr))
-    return torch.stack([r, g, b, torch.full_like(r, 255)], dim=-1)
+    return ycbcr420_to_rgba(y, cb, cr, geom.width, geom.height)

@@ -1,8 +1,11 @@
-"""Windowed batch decode and many-stream lockstep decode on a torch
-device."""
+"""Windowed batch decode (video and MP2 audio) and many-stream lockstep
+video decode on a torch device."""
 
-from .batch import BatchVideoDecoder, WindowDecoder, carry_from_numpy
+from .audio_batch import BatchAudioDecoder
+from .batch import (BatchVideoDecoder, PictureBlobRecon, WindowDecoder,
+                    carry_from_numpy)
 from .multistream import GlobalWindowDecoder, MultiStreamVideoDecoder
 
-__all__ = ["BatchVideoDecoder", "GlobalWindowDecoder",
-           "MultiStreamVideoDecoder", "WindowDecoder", "carry_from_numpy"]
+__all__ = ["BatchAudioDecoder", "BatchVideoDecoder", "GlobalWindowDecoder",
+           "MultiStreamVideoDecoder", "PictureBlobRecon", "WindowDecoder",
+           "carry_from_numpy"]

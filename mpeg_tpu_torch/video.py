@@ -1,16 +1,24 @@
-"""MPEG-1 video parse in Python: the picture plans the decoders pack.
+"""MPEG-1 Video (mpeg1video) decoder on a torch device.
 
-The port's copy of the parse side of `mpeg_tpu/video.py`: sequence,
-picture and slice headers, macroblock address/type/CBP VLCs, motion
-vector decode, DC prediction and the AC run/level VLC loop with
-dequantize+oddify+clip+premultiply (video.go:374-745), emitting one dense
-picture plan per picture.  `BatchVideoDecoder(use_native=False)` parses
-through `Video(buf, backend="plan")`; the C++ parser
-(`mpeg_tpu_torch.native`) emits the same plans.
+Port of `mpeg_tpu/video.py`:
 
-Only the "plan" backend exists here.  The reference-shaped interactive
-decode (`decode()` with a device reconstruct per picture) is still to
-port (ROADMAP, "Still to port" 1, the interactive API).
+- host parse (this file, or the C++ parser through `native`): sequence,
+  picture and slice headers, macroblock address/type/CBP VLCs, motion
+  vector decode, DC prediction and the AC run/level VLC loop with
+  dequantize+oddify+clip+premultiply (video.go:374-745), emitting one
+  dense picture plan per picture;
+- reconstruction on `device` (backend "torch", the default): each
+  picture's plan ships as a one-picture window blob, the batch decoders'
+  transport, and `parallel.batch.PictureBlobRecon` densifies it and
+  launches K1 (`ops.cuda_kernels.reconstruct_picture`; on the CPU, its
+  plain version) once.
+
+Backend "plan" parses only: `parse_next_plan` hands the plans to the
+batch decoders (`BatchVideoDecoder(use_native=False)`).  The JAX
+package's "jax" and "numpy" backends have no counterpart here: the port
+runs the kernels with device="cuda" and their plain versions with
+device="cpu".  The pixel path is all-integer and bit-exact against the
+reference (golden hash 0xea6d7fcb1340ba3f).
 """
 
 from __future__ import annotations
@@ -18,10 +26,82 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import tables as T
 from .buffer import Buffer, CorruptStream
+from .device import resolve_device
+from .ops.color import flat_frame_to_rgba
 from .ops.video_recon import FrameGeometry
+
+
+class Frame:
+    """One decoded video frame.
+
+    Planes live in a single flat padded buffer shared by Y/Cb/Cr exactly
+    like the reference (video.go:333-372): `flat`, a uint8 tensor on the
+    decoder's device.  `y`, `cb`, `cr`, `ycbcr()`, `rgba()` and `pixels()`
+    are host numpy arrays (macroblock-rounded plane sizes, as the
+    reference's plane Data slices); each access copies the frame from the
+    device once.
+    """
+
+    def __init__(self, geom: FrameGeometry, flat: torch.Tensor):
+        self.geom = geom
+        self.time = 0.0
+        self.flat = flat
+
+    def _np_flat(self) -> np.ndarray:
+        return self.flat.cpu().numpy()
+
+    def _planes(self, flat: np.ndarray):
+        g = self.geom
+        cb0 = g.luma_size
+        cr0 = cb0 + g.chroma_size
+        return (flat[:cb0].reshape(g.luma_height, g.luma_width),
+                flat[cb0:cr0].reshape(g.chroma_height, g.chroma_width),
+                flat[cr0:cr0 + g.chroma_size].reshape(g.chroma_height,
+                                                      g.chroma_width))
+
+    @property
+    def width(self) -> int:
+        return self.geom.width
+
+    @property
+    def height(self) -> int:
+        return self.geom.height
+
+    @property
+    def y(self) -> np.ndarray:
+        return self._planes(self._np_flat())[0]
+
+    @property
+    def cb(self) -> np.ndarray:
+        return self._planes(self._np_flat())[1]
+
+    @property
+    def cr(self) -> np.ndarray:
+        return self._planes(self._np_flat())[2]
+
+    def ycbcr(self):
+        """Planar YCbCr 4:2:0, display-cropped — the Python analog of the
+        reference's Frame.YCbCr() image.YCbCr wrapper (video.go:26-35):
+        (Y, Cb, Cr) numpy views of one host copy of the frame, sliced to
+        the display rectangle (the raw `y`/`cb`/`cr` properties keep the
+        macroblock-rounded storage sizes, as the reference's plane Data
+        slices do)."""
+        y, cb, cr = self._planes(self._np_flat())
+        ch, cw = (self.height + 1) // 2, (self.width + 1) // 2
+        return y[:self.height, :self.width], cb[:ch, :cw], cr[:ch, :cw]
+
+    def rgba(self) -> np.ndarray:
+        """Display-size [height, width, 4] RGBA via the exact integer
+        BT.601 conversion of Go's image/color (parity: Frame.RGBA),
+        computed on the frame's device."""
+        return flat_frame_to_rgba(self.flat, self.geom).cpu().numpy()
+
+    def pixels(self) -> np.ndarray:
+        return self.rgba().reshape(-1, 4)
 
 
 class _Motion:
@@ -50,26 +130,65 @@ class _PicturePlan:
         self.mv_v = np.zeros(mb_size, np.int32)
 
 
-class Video:
-    """MPEG-1 video parser: pulls an ES from `buf`, yields picture plans
-    (`parse_next_plan`)."""
+def _check_backend(backend: str) -> None:
+    if backend in ("jax", "numpy"):
+        raise ValueError(
+            f"backend={backend!r} is the JAX package's; the port has the "
+            "\"torch\" backend: device=\"cuda\" runs the kernels, "
+            "device=\"cpu\" their plain versions")
+    if backend not in ("torch", "plan"):
+        raise ValueError(f"unknown backend {backend!r} (expected \"torch\" "
+                         "or \"plan\")")
 
-    def __init__(self, buf: Buffer, backend: str = "plan"):
-        if backend != "plan":
-            raise NotImplementedError(
-                f"backend={backend!r}: the port parses plans only; the "
-                "interactive decode is still to port (ROADMAP, 'Still to "
-                "port' 1, the interactive API)")
+
+class Video:
+    """MPEG-1 video decoder: pulls an ES from `buf`, yields Frames."""
+
+    def __init__(self, buf: Buffer, backend: str = "torch",
+                 parser: str = None, config=None, *, device="cuda"):
+        """`backend`: "torch" (reconstruct on `device`) or "plan" (parse
+        only; the frames stay on the CPU).  `parser`: "python", "native"
+        (C++) or "auto" (native when available, python otherwise); unset,
+        it falls back to `config` (default config.DEFAULT).  `device`:
+        "cuda" (the default; raises without a card) or "cpu".
+
+        Transport: each picture ships as a delta-encoded pool-record blob
+        — the batch decoders' transport (~0.1 MB per 1080p picture) — and
+        reconstructs in one K1 launch, so the reference-shaped API runs
+        the same kernel as the throughput decoders (parity with
+        mpeg.go:416-433).
+        """
+        from .config import DEFAULT
+        cfg = config if config is not None else DEFAULT
+        _check_backend(backend)
+        parser = parser if parser is not None else cfg.parser
         self.buf = buf
         self.backend = backend
+        self.device = resolve_device(device) if backend == "torch" \
+            else torch.device("cpu")
+
+        if backend == "plan":
+            parser = "python"   # plan mode is the python-parse path
+        elif parser == "auto":
+            from . import native as native_mod
+            parser = "native" if native_mod.available() else "python"
+        self.parser = parser
+        self._native = None        # lazy NativeVideoParser
 
         self.aspect_ratio = 0.0
         self.frame_rate = 0.0
         self.bit_rate = 0
+        self.time = 0.0
+        self.frames_decoded = 0
         self.width = 0
         self.height = 0
 
         self.geom: Optional[FrameGeometry] = None
+        # Sticky pool-bucket capacities of the per-picture blob transport
+        # and the reconstruct module built for them.
+        self._blob_km = 0
+        self._blob_ke = 0
+        self._recon = None
 
         self.start_code = -1
         self.picture_type = 0
@@ -92,9 +211,16 @@ class Video:
         self.intra_quant_matrix = list(T.INTRA_QUANT_MATRIX)
         self.non_intra_quant_matrix = list(T.NON_INTRA_QUANT_MATRIX)
 
+        self.frame_current: Optional[Frame] = None
+        self.frame_forward: Optional[Frame] = None
+        self.frame_backward: Optional[Frame] = None
+
+        self.has_reference_frame = False
+        self.assume_no_b_frames = False
+
         self._plan: Optional[_PicturePlan] = None
-        # _decode_picture defers each picture plan into this list for
-        # parse_next_plan.
+        # backend="plan": _reconstruct defers each picture plan into this
+        # list for parse_next_plan.
         self._pending_plans: list = []
 
         # Persistent coefficient scratch, replicating the reference's
@@ -106,15 +232,71 @@ class Video:
         self._block_data = [0] * 64
 
         # Attempt to decode the sequence header.
-        self.start_code = self.buf.find_start_code(T.START_SEQUENCE)
-        if self.start_code != -1:
-            self._decode_sequence_header()
+        if self.parser == "native":
+            self._native_has_header()
+        else:
+            self.start_code = self.buf.find_start_code(T.START_SEQUENCE)
+            if self.start_code != -1:
+                self._decode_sequence_header()
+
+    # -- native-parser plumbing ----------------------------------------------
+
+    def _native_feed(self) -> bool:
+        """Move buffered bytes into the native parser; True if any moved."""
+        if self._native is None:
+            from . import native as native_mod
+            self._native = native_mod.NativeVideoParser()
+        data = self.buf.data
+        if not data:
+            return False
+        self._native.feed(bytes(data))
+        del data[:]
+        self.buf.bit_index = 0
+        return True
 
     def _source_ended(self) -> bool:
         """EOS for the internal parse gates: reader exhausted OR the
         owner called signal_end (push-fed streaming; buffer compaction
         defeats the reference's len==total_size inference)."""
         return self.buf.has_ended() or self.buf.end_signaled
+
+    def _native_ended(self) -> bool:
+        return self._source_ended()
+
+    def _native_has_header(self) -> bool:
+        self._native_feed()
+        if not self._native.has_header():
+            # one refill attempt through the pull model
+            if self.buf.load_callback is not None:
+                self.buf.load_callback(self.buf)
+                self._native_feed()
+            if not self._native.has_header():
+                return False
+        if not self.has_sequence_header:
+            self.width = self._native.width
+            self.height = self._native.height
+            self.frame_rate = self._native.framerate
+            self._init_geometry()
+            self.has_sequence_header = True
+        return True
+
+    def _native_next_plan(self):
+        """Pull the next picture plan, refilling through the load callback
+        exactly like the reference's pull model."""
+        while True:
+            self._native_feed()
+            item = self._native.parse_next_plan()
+            if item is not None:
+                return item
+            before = len(self.buf.data)
+            if self.buf.load_callback is not None:
+                self.buf.load_callback(self.buf)
+            if len(self.buf.data) == before:
+                if self._native_ended():
+                    self._native.signal_end()
+                    self._native_feed()
+                    return self._native.parse_next_plan()
+                return None
 
     # -- public surface (parity: video.go:123-268) ---------------------------
 
@@ -124,6 +306,8 @@ class Video:
     def has_header(self) -> bool:
         if self.has_sequence_header:
             return True
+        if self.parser == "native":
+            return self._native_has_header()
         if self.start_code != T.START_SEQUENCE:
             self.start_code = self.buf.find_start_code(T.START_SEQUENCE)
         if self.start_code == -1:
@@ -139,8 +323,165 @@ class Video:
     def get_height(self) -> int:
         return self.height if self.has_header() else 0
 
+    def set_no_delay(self, no_delay: bool) -> None:
+        """Assume no B-frames: reduces latency for streaming."""
+        self.assume_no_b_frames = no_delay
+
+    def get_time(self) -> float:
+        return self.time
+
+    def set_time(self, time: float) -> None:
+        self.frames_decoded = int(self.frame_rate * time)
+        self.time = time
+
+    def rewind(self) -> None:
+        self.buf.rewind()
+        self.time = 0.0
+        self.frames_decoded = 0
+        self.has_reference_frame = False
+        self.start_code = -1
+        if self.parser == "native" and self._native is not None:
+            self._native.rewind()   # keep sequence state, clear stream
+
     def has_ended(self) -> bool:
         return self.buf.has_ended()
+
+    # -- checkpoint / resume (reference frames, clocks, stream position) ----
+
+    def get_state(self) -> dict:
+        """Snapshot the decode state (frames, clocks, stream position).
+
+        The buffer position is included only for seekable sources; for
+        push-fed buffers pair restore with your own re-feed.
+        """
+        return {
+            "frames": [f.flat.cpu().numpy().copy() for f in
+                       (self.frame_current, self.frame_forward,
+                        self.frame_backward)],
+            "time": self.time,
+            "frames_decoded": self.frames_decoded,
+            "has_reference_frame": self.has_reference_frame,
+            "picture_type": self.picture_type,
+            "start_code": self.start_code,
+            "buf_tell": self._stream_pos() if self.buf.seekable() else None,
+        }
+
+    def _stream_pos(self) -> int:
+        pos = self.buf.tell()
+        if self.parser == "native" and self._native is not None:
+            pos -= self._native.unconsumed()
+        return pos
+
+    def set_state(self, state: dict) -> None:
+        """Resume from `get_state()` of this class or of the JAX package's
+        Video (its frames are numpy or jax arrays)."""
+        for frame, flat in zip((self.frame_current, self.frame_forward,
+                                self.frame_backward), state["frames"]):
+            frame.flat = torch.from_numpy(np.array(flat, np.uint8)).to(
+                self.device)
+        self.time = state["time"]
+        self.frames_decoded = state["frames_decoded"]
+        self.has_reference_frame = state["has_reference_frame"]
+        self.picture_type = state["picture_type"]
+        self.start_code = state["start_code"]
+        if state["buf_tell"] is not None and self.buf.seekable():
+            if self.parser == "native" and self._native is not None:
+                self._native.rewind()
+            self.buf.seek(state["buf_tell"])
+
+    def decode(self) -> Optional[Frame]:
+        """Decode one frame and advance time by 1/framerate
+        (parity: video.go:209-268)."""
+        if not self.has_header():
+            return None
+        if self.parser == "native":
+            return self._decode_with_native()
+
+        frame = None
+        while True:
+            if self.start_code != T.START_PICTURE:
+                self.start_code = self.buf.find_start_code(T.START_PICTURE)
+                if self.start_code == -1:
+                    # At EOF, a pending reference frame is still due.
+                    if self.has_reference_frame and \
+                            not self.assume_no_b_frames and \
+                            self._source_ended() and self.picture_type in (
+                                T.PICTURE_TYPE_INTRA,
+                                T.PICTURE_TYPE_PREDICTIVE):
+                        self.has_reference_frame = False
+                        frame = self.frame_backward
+                        break
+                    return None
+
+            # Whole-picture-buffered check: seek the next picture start code
+            # (or accept a final picture when the source has ended).
+            if self.buf.has_start_code(T.START_PICTURE) == -1 and \
+                    not self._source_ended():
+                return None
+            self.buf.discard_read_bytes()
+
+            self._decode_picture()
+
+            if self.assume_no_b_frames:
+                frame = self.frame_backward
+            elif self.picture_type == T.PICTURE_TYPE_B:
+                frame = self.frame_current
+            elif self.has_reference_frame:
+                frame = self.frame_forward
+            else:
+                self.has_reference_frame = True
+
+            if frame is not None:
+                break
+
+        frame.time = self.time
+        self.frames_decoded += 1
+        self.time = self.frames_decoded / self.frame_rate
+        return frame
+
+    def _decode_with_native(self) -> Optional[Frame]:
+        """decode() with the C++ parser supplying picture plans; frame
+        rotation/selection semantics identical to the python path."""
+        is_ref_types = (T.PICTURE_TYPE_INTRA, T.PICTURE_TYPE_PREDICTIVE)
+        frame = None
+        while True:
+            item = self._native_next_plan()
+            if item is None:
+                if self.has_reference_frame and \
+                        not self.assume_no_b_frames and \
+                        self._native_ended() and \
+                        self.picture_type in is_ref_types:
+                    self.has_reference_frame = False
+                    frame = self.frame_backward
+                    break
+                return None
+
+            plan, ptype = item
+            self.picture_type = ptype
+            frame_temp = self.frame_forward
+            if ptype in is_ref_types:
+                self.frame_forward = self.frame_backward
+            self._plan = plan
+            self._reconstruct()
+            if ptype in is_ref_types:
+                self.frame_backward = self.frame_current
+                self.frame_current = frame_temp
+
+            if self.assume_no_b_frames:
+                frame = self.frame_backward
+            elif ptype == T.PICTURE_TYPE_B:
+                frame = self.frame_current
+            elif self.has_reference_frame:
+                frame = self.frame_forward
+            else:
+                self.has_reference_frame = True
+            if frame is not None:
+                break
+
+        frame.time = self.time
+        self.frames_decoded += 1
+        self.time = self.frames_decoded / self.frame_rate
+        return frame
 
     # -- sequence / picture / slice parse ------------------------------------
 
@@ -173,9 +514,19 @@ class Video:
         else:
             self.non_intra_quant_matrix = list(T.NON_INTRA_QUANT_MATRIX)
 
-        self.geom = FrameGeometry.for_size(self.width, self.height)
+        self._init_geometry()
         self.has_sequence_header = True
         return True
+
+    def _init_geometry(self) -> None:
+        self.geom = FrameGeometry.for_size(self.width, self.height)
+        self.frame_current = self._new_frame()
+        self.frame_forward = self._new_frame()
+        self.frame_backward = self._new_frame()
+
+    def _new_frame(self) -> Frame:
+        return Frame(self.geom, torch.zeros(
+            self.geom.total_size, dtype=torch.uint8, device=self.device))
 
     def _decode_picture(self) -> None:
         buf = self.buf
@@ -202,13 +553,19 @@ class Video:
                 return
             self.motion_backward.r_size = f_code - 1
 
+        frame_temp = self.frame_forward
+        if self.picture_type in (T.PICTURE_TYPE_INTRA,
+                                 T.PICTURE_TYPE_PREDICTIVE):
+            self.frame_forward = self.frame_backward
+
         # Find the first slice start code; skip extension/user data.
         while True:
             self.start_code = buf.next_start_code()
             if self.start_code not in (T.START_EXTENSION, T.START_USER_DATA):
                 break
 
-        # Parse all slices into the picture plan.
+        # Parse all slices into the picture plan, then reconstruct the
+        # whole picture in one launch.
         self._plan = _PicturePlan(self.geom.mb_size)
         while T.START_SLICE_FIRST <= self.start_code <= T.START_SLICE_LAST:
             try:
@@ -222,10 +579,16 @@ class Video:
                 break
             self.start_code = buf.next_start_code()
 
-        self._pending_plans.append((self._plan, self.picture_type))
+        self._reconstruct()
+
+        # Rotate prediction pointers for reference pictures.
+        if self.picture_type in (T.PICTURE_TYPE_INTRA,
+                                 T.PICTURE_TYPE_PREDICTIVE):
+            self.frame_backward = self.frame_current
+            self.frame_current = frame_temp
 
     def parse_next_plan(self):
-        """Parse the next picture WITHOUT reconstructing.
+        """Parse the next picture WITHOUT reconstructing (backend="plan").
 
         Returns (plan, picture_type) or None at end of data.  Used by the
         batched decoders, which reconstruct the plans a window at a time.
@@ -245,6 +608,39 @@ class Video:
             self._decode_picture()
             if len(self._pending_plans) > before:
                 return self._pending_plans.pop()
+
+    def _reconstruct(self) -> None:
+        plan = self._plan
+        if self.backend == "plan":
+            self._pending_plans.append((plan, self.picture_type))
+            return
+        # Pool-record blob transport (the batch decoders' ABI with
+        # window=1): pack this picture's nonzero coefficients as
+        # delta-encoded records and reconstruct on the device.  Pool
+        # buckets are sticky per decoder, like BatchVideoDecoder's.
+        from .parallel import batch as B
+        item = [(plan, self.picture_type)]
+        # Records computed once and threaded through counting and packing
+        # (each pass is a flatnonzero + divisibility sweep over the dense
+        # plan).
+        records = [B.plan_pool_records(plan)]
+        (mi, _), (ei, _) = B._window_records(item, self.geom.mb_size,
+                                             records)
+        nm = B.delta_encode(mi)[0].size
+        ne = B.delta_encode(ei)[0].size
+        self._blob_km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
+        self._blob_ke = max(self._blob_ke,
+                            B.pool_bucket(max(ne, 1), B._MIN_KE))
+        blob = B.pack_plans_blob(item, self.geom, 1, self._blob_km,
+                                 self._blob_ke, records=records)
+        if self._recon is None or \
+                (self._recon.km, self._recon.ke) != (self._blob_km,
+                                                     self._blob_ke):
+            self._recon = B.PictureBlobRecon(
+                self.geom, self._blob_km, self._blob_ke).to(self.device)
+        cur = self.frame_current
+        cur.flat = self._recon(cur.flat, self.frame_forward.flat,
+                               self.frame_backward.flat, blob, fill=nm)
 
     def _decode_slice(self, slice_index: int) -> None:
         buf = self.buf

@@ -16,6 +16,7 @@ from mpeg_tpu.utils import Fnv1a64
 from mpeg_tpu.utils.profiling import DecodeStats
 from mpeg_tpu_torch.ops import cuda_kernels
 from mpeg_tpu_torch.parallel import BatchVideoDecoder, WindowDecoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 TESTDATA = pathlib.Path(__file__).parent / "testdata"
 GOLDEN_VIDEO_HASH = 0xEA6D7FCB1340BA3F

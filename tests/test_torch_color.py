@@ -14,6 +14,7 @@ from mpeg_tpu.parallel import BatchVideoDecoder as JaxBatchVideoDecoder
 from mpeg_tpu.parallel import MultiStreamVideoDecoder as JaxMultiStream
 from mpeg_tpu_torch.ops import color
 from mpeg_tpu_torch.parallel import BatchVideoDecoder, MultiStreamVideoDecoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_every_ycbcr_triple_matches_numpy():

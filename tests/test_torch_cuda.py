@@ -458,3 +458,115 @@ def test_k3_refuses_misaligned_inputs():
         cuda_kernels.reconstruct_planes(frame, frame, frame, res.cpu(),
                                         *args[1:], geom)
     assert cuda_kernels.reconstruct_picture_multi.launches == 0
+
+
+# -- the reference-shaped API on the card ------------------------------------
+
+GOLDEN_AUDIO = (355, 0xF1B76CDF8E6CDEA5)      # test.mp2; test.mpg's audio
+GOLDEN_VIDEO = (260, 0xEA6D7FCB1340BA3F)      # test.mpeg1video
+GOLDEN_PS_VIDEO = (278, 0xD00818EDCAFDC702)   # test.mpg
+
+
+def _pictures(name: str) -> int:
+    """The pictures of a fixture, counted by the C++ parser."""
+    from mpeg_tpu_torch.native import NativePipeline
+
+    data = (TESTDATA / name).read_bytes()
+    parser = NativePipeline(data) if data[:4] == b"\x00\x00\x01\xBA" \
+        else NativeVideoParser(data)
+    n = 0
+    while parser.parse_next_plan() is not None:
+        n += 1
+    return n
+
+
+def _buffer(name: str):
+    from mpeg_tpu_torch import Buffer
+
+    buf = Buffer(open(TESTDATA / name, "rb"))
+    buf.set_load_callback(buf.load_reader_callback)
+    return buf
+
+
+@pytest.mark.parametrize("parser", ["native", "python"])
+def test_audio_golden_on_card(parser):
+    """The MP2 synthesis on CUDA gives the no-FMA golden bit for bit."""
+    from mpeg_tpu_torch import Audio
+
+    _card()
+    audio = Audio(_buffer("test.mp2"), parser=parser, device="cuda")
+    assert audio._v.device.type == "cuda"
+    h, n = Fnv1a64(), 0
+    while (s := audio.decode()) is not None:
+        h.write(s.interleaved.astype("<f4").tobytes())
+        n += 1
+    assert (n, h.sum64()) == GOLDEN_AUDIO, f"{n} {h.sum64():#018x}"
+
+
+def test_batch_audio_on_card_matches_cpu():
+    """BatchAudioDecoder on CUDA, f32 and s16, host and out_device
+    results, equal to the CPU's."""
+    from mpeg_tpu_torch.parallel import BatchAudioDecoder
+
+    _card()
+    data = (TESTDATA / "test.mp2").read_bytes()
+    for fmt in ("f32", "s16"):
+        want = BatchAudioDecoder(data, window=32, out_format=fmt,
+                                 device="cpu").decode_all()
+        got = BatchAudioDecoder(data, window=32, out_format=fmt,
+                                device="cuda").decode_all()
+        np.testing.assert_array_equal(got, want, err_msg=fmt)
+        dev = BatchAudioDecoder(data, window=32, out_format=fmt,
+                                out_device=True, device="cuda").decode_all()
+        assert dev.device.type == "cuda"
+        np.testing.assert_array_equal(dev.cpu().numpy(), want, err_msg=fmt)
+
+
+@pytest.mark.parametrize("parser", ["native", "python"])
+def test_video_golden_on_card(parser):
+    """Video(device="cuda"): the golden, K1 launched once a picture (261
+    pictures give 260 frames and the end-of-stream flush)."""
+    from mpeg_tpu_torch import Video
+
+    _card()
+    video = Video(_buffer("test.mpeg1video"), parser=parser, device="cuda")
+    cuda_kernels.reset_launches()
+    h, n = Fnv1a64(), 0
+    while (f := video.decode()) is not None:
+        assert f.flat.device.type == "cuda"
+        h.write(f.flat[:video.geom.frame_size].cpu().numpy().tobytes())
+        n += 1
+    assert (n, h.sum64()) == GOLDEN_VIDEO
+    assert cuda_kernels.reconstruct_picture.launches == \
+        _pictures("test.mpeg1video")
+
+
+def test_mpeg_digests_on_card():
+    """MPEG(test.mpg, device="cuda"): decode_video and decode_audio on
+    the goldens; seek(3.0, True) fires the video callback once."""
+    from mpeg_tpu_torch import MPEG
+
+    _card()
+    m = MPEG(open(TESTDATA / "test.mpg", "rb"), device="cuda")
+    m.set_audio_enabled(False)
+    h, n = Fnv1a64(), 0
+    cuda_kernels.reset_launches()
+    while (f := m.decode_video()) is not None:
+        h.write(f.y.tobytes())
+        h.write(f.cb.tobytes())
+        h.write(f.cr.tobytes())
+        n += 1
+    assert (n, h.sum64()) == GOLDEN_PS_VIDEO
+    assert cuda_kernels.reconstruct_picture.launches == _pictures("test.mpg")
+    m = MPEG(open(TESTDATA / "test.mpg", "rb"), device="cuda")
+    m.set_video_enabled(False)
+    h, n = Fnv1a64(), 0
+    while (s := m.decode_audio()) is not None:
+        h.write(s.interleaved.astype("<f4").tobytes())
+        n += 1
+    assert (n, h.sum64()) == GOLDEN_AUDIO
+    m = MPEG(open(TESTDATA / "test.mpg", "rb"), device="cuda")
+    count = [0]
+    m.set_video_callback(lambda mp, f: count.__setitem__(0, count[0] + 1))
+    m.set_audio_callback(lambda mp, s: None)
+    assert m.seek(3.0, True) and count[0] == 1

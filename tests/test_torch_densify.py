@@ -12,6 +12,7 @@ from mpeg_tpu.ops.video_recon import FrameGeometry
 from mpeg_tpu.parallel import batch as jb
 from mpeg_tpu.tables import PREMULTIPLIER_MATRIX
 from mpeg_tpu_torch.parallel import batch as tb
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 PREMULT = torch.tensor(PREMULTIPLIER_MATRIX, dtype=torch.int32)

@@ -22,6 +22,7 @@ from mpeg_tpu_torch.ops.video_recon import FrameGeometry
 from mpeg_tpu_torch.parallel import BatchVideoDecoder
 from mpeg_tpu_torch.parallel import batch as tb
 from mpeg_tpu_torch.video import Video
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).parent.parent
 TESTDATA = REPO / "tests" / "testdata"

@@ -11,6 +11,7 @@ from mpeg_tpu.ops.pallas_kernels import idct_batch_pallas
 from mpeg_tpu_torch.ops import cuda_kernels
 from mpeg_tpu_torch.ops import video_recon as tvr
 from mpeg_tpu_torch.testing import random_blocks
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _port_idct(coeffs, nblocks):

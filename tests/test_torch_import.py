@@ -1,8 +1,8 @@
 """The port stands alone: a fresh interpreter that refuses every import of
 jax, of the JAX package `mpeg_tpu` and of its `native` sources loads the
 whole port and chip_smoke.py, decodes CPU windows (native and Python
-parse) and lockstep rounds of two streams, and ends with none of them
-loaded."""
+parse), lockstep rounds of two streams, and video frames and audio
+through `MPEG` and `Audio`, and ends with none of them loaded."""
 
 import os
 import pathlib
@@ -26,17 +26,22 @@ sys.meta_path.insert(0, _Block())
 
 import mpeg_tpu_torch
 import mpeg_tpu_torch._spec_tables
+import mpeg_tpu_torch.audio
 import mpeg_tpu_torch.buffer
 import mpeg_tpu_torch.config
 import mpeg_tpu_torch.demux
 import mpeg_tpu_torch.device
+import mpeg_tpu_torch.mpeg
 import mpeg_tpu_torch.native
 import mpeg_tpu_torch.ops._build
 import mpeg_tpu_torch.ops.color
 import mpeg_tpu_torch.ops.cuda_kernels
+import mpeg_tpu_torch.ops.filterbank
 import mpeg_tpu_torch.ops.video_recon
 import mpeg_tpu_torch.parallel
+import mpeg_tpu_torch.parallel.audio_batch
 import mpeg_tpu_torch.parallel.multistream
+import mpeg_tpu_torch.pipeline
 import mpeg_tpu_torch.tables
 import mpeg_tpu_torch.testing
 import mpeg_tpu_torch.utils
@@ -62,6 +67,14 @@ assert [len(r) for r in rnd] == [4, 4], rnd
 rgba = MultiStreamVideoDecoder([data[:30000]], window=4, device="cpu",
                                emit_rgba=True).decode_window()
 assert rgba[0][0].shape == (120, 160, 4), rgba[0][0].shape
+m = mpeg_tpu_torch.MPEG(open("tests/testdata/test.mpg", "rb"), device="cpu")
+f = m.decode_video()
+assert f.y.shape == (128, 160) and f.flat.device.type == "cpu", f.y.shape
+assert m.decode_audio().interleaved.shape == (2304,)
+buf = mpeg_tpu_torch.Buffer(open("tests/testdata/test.mp2", "rb"))
+buf.set_load_callback(buf.load_reader_callback)
+a = mpeg_tpu_torch.Audio(buf, device="cpu")
+assert a.decode().s16.dtype.name == "int16"
 probe = mpeg_tpu_torch.probe()
 assert probe["torch"] and "cuda_available" in probe
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)

@@ -11,6 +11,7 @@ from mpeg_tpu import native
 from mpeg_tpu.parallel import MultiStreamVideoDecoder as JaxMultiStream
 from mpeg_tpu_torch.ops import cuda_kernels
 from mpeg_tpu_torch.parallel import BatchVideoDecoder, MultiStreamVideoDecoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="needs the native parser")

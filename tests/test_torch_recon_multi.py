@@ -15,6 +15,7 @@ from mpeg_tpu.ops.pallas_kernels import reconstruct_picture_pallas_multi
 from mpeg_tpu_torch.ops import cuda_kernels
 from mpeg_tpu_torch.ops import video_recon as tvr
 from mpeg_tpu_torch.testing import plan_args, random_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _frames(rng, geom):
