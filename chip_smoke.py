@@ -30,7 +30,19 @@ bound, then drives every path of the port and checks its output:
   a picture, and a seek;
 - `interactive_1080p`: a 1080p A/V program stream (the 1080p fixture and
   test.mp2, muxed by tools/ps_mux.py) through `MPEG.decode(tick)`, video
-  against the C++ host decoder and audio against the CPU, timed.
+  against the C++ host decoder and audio against the CPU, timed;
+- `dense`: `BatchVideoDecoder(transport="dense")` (the Python parse) on
+  the golden, then on the 1080p fixture cut to 9 pictures against the
+  blob transport and the C++ host decoder;
+- `sharded_1080p`: 8 streams of the 1080p fixture (four lengths) as
+  native window blobs through `parallel.sharding` on the card's mesh and
+  on the card listed twice, every frame against the C++ host decoder and
+  the int64 pixel count exact, timed; and the sharded MP2 synthesis
+  against the single-stream one and the golden;
+- `multihost`: `parallel.multihost.launch` as one NCCL process and as two
+  gloo processes on the card, each on the golden;
+- `examples`: the seven `examples_torch/` scripts on the card, at once,
+  each in its own process.
 
 `--baseline` (which may be repeated) also builds K1 and K3 from another
 copy of `recon.cu` (an earlier commit's, or an edited copy with another
@@ -1421,6 +1433,318 @@ def phase_interactive_1080p() -> dict:
     return out
 
 
+def phase_dense() -> dict:
+    """The dense transport on the card: test.mpeg1video through
+    `BatchVideoDecoder(transport="dense", use_native=False)` on its golden
+    with K1 launched once a picture; then the 1080p fixture cut to 9
+    pictures, every frame equal to the blob transport's and to the C++
+    host decoder's, with the bytes each transport ships."""
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.parallel import BatchVideoDecoder
+    from mpeg_tpu_torch.utils.profiling import DecodeStats
+
+    es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
+    dec = BatchVideoDecoder(es, window=16, transport="dense",
+                            use_native=False, device="cuda")
+    cuda_kernels.reset_launches()
+    frames = dec.decode_all()
+    torch.cuda.synchronize()
+    launches = cuda_kernels.reconstruct_picture.launches
+    pictures = len(dec._types)
+    digest = _digest(frames, dec.geom)
+    if (len(frames), digest) != GOLDEN_VIDEO or launches != pictures:
+        fail(f"dense: {len(frames)} frames, hash {digest:#018x}, K1 "
+             f"launched {launches} times for {pictures} pictures")
+
+    cut = _stream_cuts(_fixture_1080p())[STREAM_CUTS.index(9)]
+    want = _native_frames(cut)
+    stats = {"dense": DecodeStats(), "blob": DecodeStats()}
+    d = BatchVideoDecoder(cut, window=16, transport="dense",
+                          use_native=False, device="cuda",
+                          stats=stats["dense"])
+    cuda_kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = d.decode_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cut_launches = cuda_kernels.reconstruct_picture.launches
+    blob = BatchVideoDecoder(cut, window=16, device="cuda",
+                             stats=stats["blob"]).decode_all()
+    fs = d.geom.frame_size
+    _check_against_host(got, want, fs, "dense 1080p cut")
+    _check_against_host(got, blob, fs, "dense 1080p cut against blob")
+    if cut_launches != len(d._types):
+        fail(f"dense 1080p: K1 launched {cut_launches} times for "
+             f"{len(d._types)} pictures")
+    out = {"phase": "dense", "golden_frames": len(frames),
+           "hash": f"{digest:#018x}", "k1_launches": launches,
+           "cut_pictures": len(d._types), "cut_frames": len(got),
+           "equal_to_native_host_decoder": True, "equal_to_blob": True,
+           "cut_k1_launches": cut_launches,
+           "cut_wall_s_python_parse_included": wall,
+           "cut_transfer_bytes": {k: v.transfer_bytes
+                                  for k, v in stats.items()}}
+    emit(out)
+    return out
+
+
+SHARDED_STREAMS = 8
+
+
+def _native_windows(data: bytes, window: int):
+    """`data`'s windows as the C++ parser packs them: (geom, [(blob, km,
+    ke, picture types)])."""
+    from mpeg_tpu_torch.parallel import BatchVideoDecoder
+
+    dec = BatchVideoDecoder(data, window=window, device="cuda")
+    out = []
+    while True:
+        blob, types, _fill = dec._native_window_blob()
+        if not types:
+            return dec.geom, out
+        out.append((blob.copy(), dec._km, dec._ke, types))
+
+
+def _common_blobs(per_stream, geom, window: int):
+    """Each stream's native blobs re-laid to common buckets, window by
+    window (reference: examples/clip_serving.py): ([blobs uint8 [S,
+    bytes]], [[types of stream s] per window], km, ke).  A stream with no
+    picture left gets an all-zero blob: every step a no-op."""
+    import numpy as np
+
+    from mpeg_tpu_torch.parallel.batch import blob_layout, blob_views
+
+    km = max(w[1] for s in per_stream for w in s)
+    ke = max(w[2] for s in per_stream for w in s)
+    total = blob_layout(geom, window, km, ke)[1]
+    n_win = max(len(s) for s in per_stream)
+    blobs, types = [], []
+    for w in range(n_win):
+        stacked = np.zeros((len(per_stream), total), np.uint8)
+        types.append([])
+        for s, wins in enumerate(per_stream):
+            if w >= len(wins):
+                types[-1].append([])
+                continue
+            blob, bkm, bke, t = wins[w]
+            src = blob_views(blob, geom, window, bkm, bke)
+            dst = blob_views(stacked[s], geom, window, km, ke)
+            for k in src:
+                dst[k][:src[k].size] = src[k]
+            types[-1].append(t)
+        blobs.append(stacked)
+    return blobs, types, km, ke
+
+
+def _sharded_decode(sh, geom, mesh, blobs, types, window, km, ke):
+    """Every window through the sharded blob decoder: (per-stream
+    displayed frames, summed total_px, the flush included)."""
+    import torch
+
+    from mpeg_tpu_torch.tables import PICTURE_TYPE_B
+
+    n = blobs[0].shape[0]
+    decode = sh.make_sharded_blob_decoder(geom, mesh, window, km, ke)
+    carry = sh.zero_carry(geom, n, mesh)
+    frames = [[] for _ in range(n)]
+    has_ref, last = [False] * n, [0] * n
+    total_px = 0
+    for w, stacked in enumerate(blobs):
+        carry, disps, px = decode(carry, stacked)
+        if px.dtype != torch.int64:
+            fail(f"sharded total_px is {px.dtype}, not int64")
+        total_px += int(px)
+        disps = torch.cat([d.to(mesh.devices[0]) for d in disps])
+        for s in range(n):
+            for i, t in enumerate(types[w][s]):
+                last[s] = t
+                if t == PICTURE_TYPE_B or has_ref[s]:
+                    frames[s].append(disps[s, i])
+                else:
+                    has_ref[s] = True
+    bwd = torch.cat([b.to(mesh.devices[0]) for b in carry[2]])
+    for s in range(n):
+        if has_ref[s] and last[s] != PICTURE_TYPE_B:
+            frames[s].append(bwd[s])
+    return frames, total_px
+
+
+def phase_sharded_1080p() -> dict:
+    """8 streams of the 1080p fixture (stream s cut as STREAM_CUTS[s % 4])
+    at window 16, as native window blobs at common buckets, through
+    `make_sharded_blob_decoder` on `make_mesh()` (the card) and on
+    ["cuda:0", "cuda:0"] (two shards on it): every frame, flush included,
+    against the C++ host decoder, total_px against pictures x frame_size
+    in int64, K1's launches; then the displayed frames/s of the decode
+    calls (the parse is done before; median of 3 after a warm-up), one
+    profiled pass and the peak device memory.  Then `make_sharded_audio_synth` on the card: 8
+    streams of test.mp2's frames (stream s from frame 4s, 320 frames),
+    each equal to the single-stream `synthesize_window` + `finalize`, and
+    stream 0 with the golden decode's last 35 frames on the golden."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.device import gpu_name_and_power_limit
+    from mpeg_tpu_torch.native import NativeAudioParser
+    from mpeg_tpu_torch.ops import cuda_kernels, filterbank
+    from mpeg_tpu_torch.parallel import BatchAudioDecoder
+    from mpeg_tpu_torch.parallel import sharding as sh
+
+    window = 16
+    cuts = _stream_cuts(_fixture_1080p())
+    parsed = [_native_windows(c, window) for c in cuts]
+    geom = parsed[0][0]
+    per_stream = [parsed[s % len(cuts)][1] for s in range(SHARDED_STREAMS)]
+    blobs, types, km, ke = _common_blobs(per_stream, geom, window)
+    want = [[torch.from_numpy(f).cuda() for f in _native_frames(c)]
+            for c in cuts]
+    pictures = sum(len(t) for w in types for t in w)
+    fs = geom.frame_size
+    out = {"phase": "sharded_1080p", "card": gpu_name_and_power_limit(),
+           "streams": SHARDED_STREAMS, "window": window,
+           "stream_pictures_kept": list(STREAM_CUTS), "pictures": pictures,
+           "pool_buckets": [km, ke], "meshes": {}}
+    for name, devices in (("card", None), ("card_twice",
+                                           ["cuda:0", "cuda:0"])):
+        mesh = sh.make_mesh(devices)
+        torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launches()
+        frames, total_px = _sharded_decode(sh, geom, mesh, blobs, types,
+                                           window, km, ke)
+        torch.cuda.synchronize()
+        launches = cuda_kernels.reconstruct_picture.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        for s in range(SHARDED_STREAMS):
+            _check_against_host(frames[s], want[s % len(cuts)], fs,
+                                f"sharded 1080p ({name}), stream {s}")
+        if total_px != pictures * fs:
+            fail(f"sharded total_px {total_px}, want {pictures * fs}")
+        bound = len(blobs) * window * len(mesh.devices)
+        if not 0 < launches <= bound:
+            fail(f"sharded ({name}): K1 launched {launches} times "
+                 f"(bound {bound})")
+        n_frames = sum(len(f) for f in frames)
+        del frames
+
+        def run():
+            return _sharded_decode(sh, geom, mesh, blobs, types, window,
+                                   km, ke)
+
+        walls = _passes(run)
+        out["meshes"][name] = {
+            "devices": [str(d) for d in mesh.devices], "frames": n_frames,
+            "equal_to_native_host_decoder": True, "total_px": total_px,
+            "total_px_dtype": "int64", "k1_launches": launches,
+            "k1_launch_bound": bound, "peak_device_gib": peak_gib,
+            "fps_median": n_frames / statistics.median(walls),
+            "walls_s": walls,
+            "profiled_pass": profiled_pass(run, statistics.median(walls))}
+
+    mp2 = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
+    parser = NativeAudioParser(mp2)
+    sub = []
+    while (f := parser.parse_next_frame()) is not None:
+        sub.append(f)
+    n_frames = 320
+    samples = np.stack([np.asarray(sub[4 * s:4 * s + n_frames], np.int32)
+                        .reshape(-1, 2, 32) for s in range(SHARDED_STREAMS)])
+    mesh = sh.make_mesh()
+    u, _hist, total = sh.make_sharded_audio_synth(mesh)(
+        samples, sh.zero_audio_hist(SHARDED_STREAMS, mesh))
+    u = torch.cat(u)
+    zero = torch.zeros((15, 2, 64), dtype=torch.float32, device="cuda")
+    for s in range(SHARDED_STREAMS):
+        one, _ = filterbank.synthesize_window(
+            torch.from_numpy(samples[s]).cuda(), zero)
+        if not torch.equal(filterbank.finalize(u[s]),
+                           filterbank.finalize(one)):
+            fail(f"sharded synthesis stream {s} differs from one stream's")
+    if int(total) != samples.shape[0] * samples.shape[1] * 32:
+        fail(f"sharded synthesis total {int(total)}")
+    golden = BatchAudioDecoder(mp2, window=32, device="cuda").decode_all()
+    pcm = np.concatenate([filterbank.finalize(u[0]).cpu().numpy(),
+                          golden[n_frames * 2304:]])
+    if _pcm_hash([pcm]) != GOLDEN_AUDIO[1]:
+        fail(f"sharded synthesis stream 0: hash {_pcm_hash([pcm]):#018x}")
+    out["audio"] = {"streams": SHARDED_STREAMS, "frames": n_frames,
+                    "equal_to_one_stream": True, "total": int(total),
+                    "golden_with_decoder_tail": True}
+    emit(out)
+    return out
+
+
+def phase_multihost() -> dict:
+    """`parallel.multihost.launch` on the card: one process with NCCL and
+    two with gloo (NCCL refuses two ranks on one card), the two launches
+    at once, each process decoding test.mpeg1video on its local stream,
+    every report on the golden."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpeg_tpu_torch.parallel.multihost import launch
+
+    def run(backend, n):
+        t0 = time.perf_counter()
+        reports = launch(num_processes=n, local_devices=1, device="cuda",
+                         backend=backend, timeout=300)
+        return reports, time.perf_counter() - t0
+
+    runs = {"nccl": 1, "gloo": 2}
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {b: pool.submit(run, b, n) for b, n in runs.items()}
+        results = {b: f.result() for b, f in futures.items()}
+    out = {"phase": "multihost"}
+    for backend, (reports, secs) in results.items():
+        if len(reports) != runs[backend] or not all(
+                "golden 0xea6d7fcb1340ba3f on all" in r for r in reports):
+            fail(f"multihost {backend}: {reports}")
+        out[backend] = {"processes": runs[backend], "reports": reports,
+                        "seconds": secs}
+    emit(out)
+    return out
+
+
+EXAMPLES = ("play.py", "pipe_streaming.py", "batch_decode.py",
+            "av_serving.py", "multistream_serving.py", "multistream_mesh.py",
+            "clip_serving.py")
+
+
+def phase_examples() -> dict:
+    """The seven `examples_torch/` scripts on the card (their default
+    device), all started at once, each in its own process: each must
+    exit 0 and print."""
+    import subprocess
+
+    play_dir = os.path.join(REPO, "build", "chip_smoke_play")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            args = [os.path.join(TESTDATA, "test.mpg"), play_dir] \
+                if name == "play.py" else []
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "examples_torch", name),
+                 *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=REPO)
+        results = {name: p.communicate(timeout=300)
+                   for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    out = {"phase": "examples", "seconds": secs, "last_lines": {}}
+    for name, (stdout, stderr) in results.items():
+        if procs[name].returncode != 0 or not stdout.strip():
+            fail(f"examples_torch/{name}: rc {procs[name].returncode}, "
+                 f"stdout {stdout[-300:]!r}, stderr {stderr[-800:]}")
+        out["last_lines"][name] = stdout.strip().splitlines()[-1]
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1456,13 +1780,18 @@ def main() -> int:
     phase_audio()
     phase_interactive_golden()
     interactive = phase_interactive_1080p()
-    # The three decodes' idle share, or that the profiler recorded nothing.
+    phase_dense()
+    sharded = phase_sharded_1080p()
+    phase_multihost()
+    phase_examples()
+    # The four decodes' idle share, or that the profiler recorded nothing.
     emit({"idle_share": {
         name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
                if out["profiled_pass"]["device_recorded"] else
                "not measured: torch.profiler recorded no device activity")
         for name, out in (("e2e_1080p", e2e), ("recon_multi_1080p", multi),
-                          ("multistream_1080p", streams))}})
+                          ("multistream_1080p", streams),
+                          ("sharded_1080p", sharded["meshes"]["card"]))}})
     k3_decode = multi["profiled_pass"]
 
     src, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
@@ -1489,7 +1818,8 @@ def main() -> int:
             fixture_ms=fixture["k1_ms"],
             fixture_plain_ms=fixture["k1_plain_ms"],
             fixture_bound_ms=fixture["bound_ms"],
-            interactive_launches=interactive["k1_launches"]),
+            interactive_launches=interactive["k1_launches"],
+            sharded_launches=sharded["meshes"]["card"]["k1_launches"]),
         row("idct_batch", 93, multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
             parity["k2_plain_ms"], parity["k2_bound_ms"]),

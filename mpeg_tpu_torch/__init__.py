@@ -40,12 +40,20 @@ without one); `device="cpu"` runs the plain versions.
 """
 
 from .audio import SAMPLES_PER_FRAME, Audio, AudioFormat, Samples
-from .buffer import Buffer
+from .buffer import BUFFER_SIZE, Buffer
 from .config import Config
+from .demux import (
+    PACKET_AUDIO_1, PACKET_AUDIO_2, PACKET_AUDIO_3, PACKET_AUDIO_4,
+    PACKET_INVALID_TS, PACKET_PRIVATE, PACKET_VIDEO_1, Demux,
+    InvalidHeaderError, Packet,
+)
 from .device import probe, resolve_device
 from .mpeg import MPEG, InvalidMpegError
 from .video import Frame, Video
 
-__all__ = ["MPEG", "InvalidMpegError", "Config", "Video", "Frame", "Audio",
-           "AudioFormat", "Samples", "SAMPLES_PER_FRAME", "Buffer", "probe",
-           "resolve_device"]
+__all__ = ["MPEG", "InvalidMpegError", "Config", "Video", "Frame",
+           "Buffer", "BUFFER_SIZE", "Demux", "Packet", "InvalidHeaderError",
+           "PACKET_INVALID_TS", "PACKET_PRIVATE", "PACKET_VIDEO_1",
+           "PACKET_AUDIO_1", "PACKET_AUDIO_2", "PACKET_AUDIO_3",
+           "PACKET_AUDIO_4", "Audio", "AudioFormat", "Samples",
+           "SAMPLES_PER_FRAME", "probe", "resolve_device"]

@@ -26,6 +26,7 @@ from . import tables as T
 from .buffer import Buffer
 from .device import resolve_device
 from .ops import filterbank
+from .video import _check_backend
 
 SAMPLES_PER_FRAME = T.SAMPLES_PER_FRAME
 
@@ -84,14 +85,16 @@ class Samples:
 class Audio:
     """MP2 decoder: pulls an elementary stream from `buf`, yields Samples."""
 
-    def __init__(self, buf: Buffer, parser: str = None, config=None, *,
-                 device="cuda"):
-        """`parser`: "python", "native" (C++) or "auto" (native when
-        available); unset, it falls back to `config` (default
+    def __init__(self, buf: Buffer, backend: str = None,
+                 parser: str = None, config=None, *, device="cuda"):
+        """`backend`: "torch" (the JAX package's "jax" and "numpy" raise).
+        `parser`: "python", "native" (C++) or "auto" (native when
+        available).  Unset, both fall back to `config` (default
         config.DEFAULT).  `device`: where the synthesis runs, "cuda" (the
         default; raises without a card) or "cpu"."""
         from .config import DEFAULT
         cfg = config if config is not None else DEFAULT
+        self.backend = _check_backend(backend, cfg, ("torch",))
         self.device = resolve_device(device)
         parser = parser if parser is not None else cfg.parser
         self.buf = buf

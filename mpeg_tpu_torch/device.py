@@ -26,6 +26,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def explicit_device(device) -> torch.device:
+    """`resolve_device` with a CUDA index always given: "cuda" becomes
+    "cuda:i" for the current device i, so that two devices compare equal
+    exactly when they are one card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _first_line(cmd) -> str | None:
     try:
         out = subprocess.run(cmd, capture_output=True, text=True,

@@ -26,7 +26,7 @@ from .demux import (
     Demux, InvalidHeaderError, PACKET_AUDIO_1, PACKET_VIDEO_1,
 )
 from .device import resolve_device
-from .video import Frame, Video
+from .video import Frame, Video, _check_backend
 
 
 class InvalidMpegError(Exception):
@@ -48,15 +48,19 @@ class MPEG:
     stays as the control plane: probing, start-time/duration estimation
     and the byte-rate seek search.
 
-    `device`: where the decoders reconstruct video and synthesize audio,
-    "cuda" (the default; raises without a card) or "cpu"."""
+    `backend`: "torch" (or None: `config.backend`, "torch" by default);
+    the JAX package's "jax" and "numpy" raise.  `device`: where the
+    decoders reconstruct video and synthesize audio, "cuda" (the default;
+    raises without a card) or "cpu"."""
 
-    def __init__(self, reader, config=None, *, device="cuda"):
+    def __init__(self, reader, backend: str = None, config=None, *,
+                 device="cuda"):
         if isinstance(reader, (bytes, bytearray)):
             reader = io.BytesIO(reader)
 
         from .config import DEFAULT
         self.config = config if config is not None else DEFAULT
+        self.backend = _check_backend(backend, self.config, ("torch",))
         self.device = resolve_device(device)
         buf = Buffer(reader, chunk_size=self.config.buffer_size)
         self._seekable = buf.seekable()
@@ -504,13 +508,14 @@ class MPEG:
                 if self._pipeline is not None:
                     from .pipeline import PipelineVideo
                     self.video_decoder = PipelineVideo(
-                        self._pipeline, self._feeder, config=self.config,
-                        device=self.device)
+                        self._pipeline, self._feeder, self.backend,
+                        self.config, device=self.device)
                 else:
                     self.video_buffer = Buffer(None)
                     self.video_buffer.set_load_callback(
                         self._read_video_packet)
                     self.video_decoder = Video(self.video_buffer,
+                                               backend=self.backend,
                                                parser=self.config.parser,
                                                device=self.device)
 
@@ -522,13 +527,14 @@ class MPEG:
                 if self._pipeline is not None:
                     from .pipeline import PipelineAudio
                     self.audio_decoder = PipelineAudio(
-                        self._pipeline, self._feeder, config=self.config,
-                        device=self.device)
+                        self._pipeline, self._feeder, self.backend,
+                        self.config, device=self.device)
                 else:
                     self.audio_buffer = Buffer(None)
                     self.audio_buffer.set_load_callback(
                         self._read_audio_packet)
                     self.audio_decoder = Audio(self.audio_buffer,
+                                               backend=self.backend,
                                                parser=self.config.parser,
                                                device=self.device)
                 if self.config.audio_format:

@@ -21,7 +21,11 @@ prefetch, streaming `feed` and `at_time`.  Per window the device runs:
 
 The blob transport is the reference's: a window ships its fixed
 metadata+escape prefix and a power-of-two bucket of its filled main
-records (reference: mpeg_tpu/parallel/batch.py module docstring).
+records (reference: mpeg_tpu/parallel/batch.py module docstring).  The
+dense transport (`stack_plans` + `DenseWindowDecoder`, which
+`make_dense_scan_decoder` builds) ships the stacked plan arrays as they
+are (~12.5 MB a 1080p picture) and skips steps 1-2; it is the readable
+oracle, fed by the Python parse.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import explicit_device, resolve_device
 from ..ops import cuda_kernels
 from ..ops.color import flat_frame_to_rgba
 from ..ops.video_recon import FrameGeometry
@@ -51,6 +55,36 @@ _PREMULT = np.asarray(PREMULTIPLIER_MATRIX, np.int32)
 _NB_CLASS_REP = (0, 1, 2, 10)
 # Per-picture reconstruct inputs from unpack_blob_meta, in argument order.
 _PLAN_FIELDS = ("nblocks", "intra_blk", "src_sel", "mv_h", "mv_v")
+
+
+def stack_plans(plans, geom: FrameGeometry, window: int):
+    """Stack (plan, picture_type) pairs into dense scan inputs, padding
+    with no-op steps (a no-op leaves the carry untouched)."""
+    n = len(plans)
+    if n > window:
+        raise ValueError(f"{n} plans do not fit a window of {window}")
+    mb = geom.mb_size
+    out = {
+        "coeffs": np.zeros((window, mb, 6, 64), np.int32),
+        "nblocks": np.zeros((window, mb, 6), np.int32),
+        "intra_blk": np.zeros((window, mb, 6), np.int32),
+        "src_sel": np.zeros((window, mb), np.int32),
+        "mv_h": np.zeros((window, mb), np.int32),
+        "mv_v": np.zeros((window, mb), np.int32),
+        "is_ref": np.zeros(window, np.int32),
+        "is_noop": np.ones(window, np.int32),
+    }
+    for i, (plan, ptype) in enumerate(plans):
+        out["coeffs"][i] = plan.coeffs
+        out["nblocks"][i] = plan.nblocks
+        out["intra_blk"][i] = plan.intra_blk
+        out["src_sel"][i] = plan.src_sel
+        out["mv_h"][i] = plan.mv_h
+        out["mv_v"][i] = plan.mv_v
+        out["is_ref"][i] = 1 if ptype in (PICTURE_TYPE_INTRA,
+                                          PICTURE_TYPE_PREDICTIVE) else 0
+        out["is_noop"][i] = 0
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -444,27 +478,84 @@ class WindowDecoder(nn.Module):
                                self.premult).view(window, mb, 6, 64)
         meta = unpack_blob_meta(meta_esc, geom, window, self.km, self.ke,
                                 self.nb_class_rep)
-        cur, fwd, bwd = carry
-        shape = (geom.height, geom.width, 4) if self.emit_rgba \
-            else (geom.total_size,)
-        disps = torch.empty((window, *shape), dtype=torch.uint8,
-                            device=cur.device)
-        for t in range(window):
-            is_ref, run = flags[t] & 1, flags[t] & 2
-            if run:                  # a reference's forward aliases backward
-                new = self.recon(
-                    cur, bwd if is_ref else fwd, bwd, coeffs[t],
-                    *(meta[k][t] for k in _PLAN_FIELDS), geom)
-            else:                    # padding step: the carry stays
-                new = cur
-            disp = bwd if is_ref else new
-            disps[t].copy_(flat_frame_to_rgba(disp, geom) if self.emit_rgba
-                           else disp)
-            if is_ref and run:
-                cur, fwd, bwd = fwd, bwd, new
-            else:
-                cur = new
-        return (cur, fwd, bwd), disps
+        plan = [coeffs, *(meta[k] for k in _PLAN_FIELDS)]
+        return _run_window_steps(carry, plan, flags, geom, self.recon,
+                                self.emit_rgba)
+
+
+def _run_window_steps(carry, plan, flags, geom: FrameGeometry, recon,
+                     emit_rgba: bool = False):
+    """One stream's window of picture steps (the reference's `make_scan_step`
+    scanned over the window), shared by the blob and dense decoders.
+
+    `plan` holds the window's (coeffs, nblocks, intra_blk, src_sel, mv_h,
+    mv_v) tensors, each with a leading step axis; `flags` the host's
+    per-step flags (bit0 reference picture, bit1 valid).  A valid step is
+    one `recon` call; a padding step launches nothing and keeps the carry.
+    Returns ((cur, fwd, bwd), displays)."""
+    cur, fwd, bwd = carry
+    shape = (geom.height, geom.width, 4) if emit_rgba else (geom.total_size,)
+    disps = torch.empty((len(flags), *shape), dtype=torch.uint8,
+                        device=cur.device)
+    for t in range(len(flags)):
+        is_ref, run = flags[t] & 1, flags[t] & 2
+        if run:                      # a reference's forward aliases backward
+            new = recon(cur, bwd if is_ref else fwd, bwd,
+                        *(p[t] for p in plan), geom)
+        else:                        # padding step: the carry stays
+            new = cur
+        disp = bwd if is_ref else new
+        disps[t].copy_(flat_frame_to_rgba(disp, geom) if emit_rgba else disp)
+        if is_ref and run:
+            cur, fwd, bwd = fwd, bwd, new
+        else:
+            cur = new
+    return (cur, fwd, bwd), disps
+
+
+class DenseWindowDecoder(nn.Module):
+    """Decode one window of stacked dense plans (reference: batch.py
+    make_dense_scan_decoder): (carry, stack_plans(...)) -> (carry,
+    displays), as `WindowDecoder` does for a blob.  The stacked numpy
+    arrays are copied to the carry's device; one `recon` launch a valid
+    step, none for the no-op steps.  Displays are uint8 [window,
+    total_size] (RGBA: [window, H, W, 4])."""
+
+    def __init__(self, geom: FrameGeometry, emit_rgba: bool = False,
+                 recon=cuda_kernels.reconstruct_picture):
+        super().__init__()
+        self.geom, self.emit_rgba, self.recon = geom, emit_rgba, recon
+
+    def forward(self, carry, plans):
+        dev = carry[0].device
+        is_ref = np.asarray(plans["is_ref"], np.int32)
+        run = 1 - np.asarray(plans["is_noop"], np.int32)
+        flags = (is_ref & 1) | ((run & 1) << 1)
+        plan = [torch.as_tensor(np.asarray(plans[k])).to(dev)
+                for k in ("coeffs", *_PLAN_FIELDS)]
+        return _run_window_steps(carry, plan, flags, self.geom, self.recon,
+                                self.emit_rgba)
+
+
+def make_dense_scan_decoder(geom: FrameGeometry, emit_rgba: bool = False, *,
+                            device="cuda"):
+    """The dense window decode on `device` ("cuda", the default, raises
+    without a card; "cpu" runs the plain versions):
+    (carry, stack_plans(...)) -> (carry, displays).  carry is three flat
+    uint8 [total_size] frames on `device`."""
+    dev = explicit_device(device)
+    dec = DenseWindowDecoder(geom, emit_rgba).to(dev)
+
+    def scan_decode(carry, plans):
+        if any(f.device != dev for f in carry):
+            raise ValueError(f"carry: expected frames on {dev}")
+        return dec(carry, plans)
+
+    return scan_decode
+
+
+# The reference's name for the dense decoder (mpeg_tpu/parallel/batch.py).
+make_scan_decoder = make_dense_scan_decoder
 
 
 class PictureBlobRecon(nn.Module):
@@ -526,7 +617,9 @@ class BatchVideoDecoder:
     present) or "cpu".  On "cuda" each picture is one launch of the fused
     reconstruct kernel; on "cpu" the plain PyTorch version runs.  With
     `emit_rgba=True` displayed frames are [H, W, 4] uint8 RGBA tensors on
-    `device`.  Only `transport="blob"` is ported.
+    `device`.  `transport="dense"` ships stacked dense plans
+    (`stack_plans`) instead of window blobs and needs the Python parse
+    (`use_native=False`).
     """
 
     # The per-picture reconstruct `WindowDecoder` runs (internal: K3's
@@ -540,8 +633,9 @@ class BatchVideoDecoder:
                  device="cuda"):
         """`buf` is a Buffer (Python parse) or bytes (native parse).
 
-        use_native: parse with the C++ parser; default: native when
-        available and the input is bytes.
+        use_native: parse with the C++ parser (requires the blob
+        transport); default: native when available and the input is
+        bytes.
         stats: an optional utils.profiling.DecodeStats populated per
         window (parse/dispatch timing, bytes transferred).
         emit_rgba: displayed frames come back as [H, W, 4] uint8 RGBA
@@ -564,11 +658,9 @@ class BatchVideoDecoder:
         cfg = config if config is not None else DEFAULT
         window = window if window is not None else cfg.window
         transport = transport if transport is not None else cfg.transport
-        if transport != "blob":
-            raise NotImplementedError(
-                "transport='dense' is still to port (ROADMAP, 'Still to "
-                "port': the dense transport); the port decodes the blob "
-                "transport")
+        if transport not in ("blob", "dense"):
+            raise ValueError(f"unknown transport {transport!r} "
+                             "(expected 'blob' or 'dense')")
         from .. import native as native_mod
         if use_native is None:
             use_native = isinstance(buf, (bytes, bytearray)) and \
@@ -581,6 +673,10 @@ class BatchVideoDecoder:
         self._use_native = use_native
         self._prefix = b""   # bytes held back until the container is known
         if use_native:
+            if transport != "blob":
+                raise ValueError("transport='dense' needs the Python plan "
+                                 "parse (use_native=False): the native "
+                                 "parse emits blob records")
             data = buf if isinstance(buf, (bytes, bytearray)) else \
                 bytes(buf.bytes())
             if data or not streaming:
@@ -823,12 +919,17 @@ class BatchVideoDecoder:
         return self._ended or self.video.buf.has_ended()
 
     def _ensure_device_state(self, caps=None):
-        if caps is None:
+        if caps is None and self.transport == "blob":
             caps = (self._km, self._ke)
         if self._scan is None or self._scan_caps != caps:
-            self._scan = WindowDecoder(self.geom, self.window, *caps,
-                                       emit_rgba=self.emit_rgba,
-                                       recon=self._recon).to(self.device)
+            if self.transport == "blob":
+                self._scan = WindowDecoder(self.geom, self.window, *caps,
+                                           emit_rgba=self.emit_rgba,
+                                           recon=self._recon)
+            else:
+                self._scan = DenseWindowDecoder(self.geom, self.emit_rgba,
+                                                recon=self._recon)
+            self._scan = self._scan.to(self.device)
             self._scan_caps = caps
         if self._carry is None:
             # Three distinct buffers, as the reference's carry.
@@ -856,7 +957,7 @@ class BatchVideoDecoder:
         if not self._has_header():
             return [], 0
 
-        blob, _plans, types, caps, t_parse, fill = self._next_parsed()
+        blob, plans, types, caps, t_parse, fill = self._next_parsed()
 
         if not types:
             # End of stream: flush the pending reference frame.
@@ -871,21 +972,27 @@ class BatchVideoDecoder:
 
         self._ensure_device_state(caps)
         t0 = time.perf_counter()
-        # One transfer: the fixed meta+escape prefix and a power-of-two
-        # bucket of the filled main records (the tail is zero records).
-        split = blob_split(self.geom, self.window, *caps)
-        nm = caps[0] if fill is None else fill[0]
-        kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
-        nbytes = split + 4 * kt
-        flags = blob_views(blob, self.geom, self.window, *caps)["flags"] \
-            .copy()
-        dev_blob = torch.from_numpy(blob[:nbytes]).to(self.device, copy=True)
-        if fill is not None and len(self._blob_free) < 3:
-            # The copy above is blocking (pageable host memory), so the
-            # host blob is free again as soon as it returns.
-            self._blob_free.append((blob, caps, fill))
-        self._carry, disps = self._scan(self._carry, dev_blob[:split],
-                                        dev_blob[split:], flags)
+        if self.transport == "blob":
+            # One transfer: the fixed meta+escape prefix and a power-of-two
+            # bucket of the filled main records (the tail is zero records).
+            split = blob_split(self.geom, self.window, *caps)
+            nm = caps[0] if fill is None else fill[0]
+            kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
+            nbytes = split + 4 * kt
+            flags = blob_views(blob, self.geom, self.window, *caps)["flags"] \
+                .copy()
+            dev_blob = torch.from_numpy(blob[:nbytes]).to(self.device,
+                                                          copy=True)
+            if fill is not None and len(self._blob_free) < 3:
+                # The copy above is blocking (pageable host memory), so the
+                # host blob is free again as soon as it returns.
+                self._blob_free.append((blob, caps, fill))
+            self._carry, disps = self._scan(self._carry, dev_blob[:split],
+                                            dev_blob[split:], flags)
+        else:
+            stacked = stack_plans(plans, self.geom, self.window)
+            self._carry, disps = self._scan(self._carry, stacked)
+            nbytes = sum(a.nbytes for a in stacked.values())
         t_disp = time.perf_counter() - t0
 
         if self.stats is not None:
@@ -1010,7 +1117,8 @@ class BatchVideoDecoder:
         consumer compiles against the right layout even if a later
         window has already grown the sticky buckets; fill is the
         (nm, ne) pool fill level for blob recycling (None when the
-        window came from the Python parse path)."""
+        window came from the Python parse path); the dense transport packs
+        nothing (blob and caps None)."""
         t0 = time.perf_counter()
         fill = None
         if self.native is not None:
@@ -1020,7 +1128,7 @@ class BatchVideoDecoder:
             plans = self.parse_window()
             types = [t for _, t in plans]
             blob = None
-            if plans:
+            if plans and self.transport == "blob":
                 records = [plan_pool_records(p) for p, _ in plans]
                 (mi, _), (ei, _) = _window_records(
                     plans, self.geom.mb_size, records)
@@ -1030,7 +1138,7 @@ class BatchVideoDecoder:
                 self._ke = max(self._ke, pool_bucket(ne, _MIN_KE))
                 blob = pack_plans_blob(plans, self.geom, self.window,
                                        self._km, self._ke, records=records)
-        caps = (self._km, self._ke)
+        caps = (self._km, self._ke) if self.transport == "blob" else None
         return blob, plans, types, caps, time.perf_counter() - t0, fill
 
     def _next_parsed(self):

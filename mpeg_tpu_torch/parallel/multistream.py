@@ -113,13 +113,23 @@ class GlobalWindowDecoder(nn.Module):
     def forward(self, carry, meta_esc, main_part, flags):
         geom, mb = self.geom, self.geom.mb_size
         gw = self.n * self.window
-        pool, slots = carry
-        dev = pool.device
         coeffs = densify_split(meta_esc, main_part, geom, gw, self.keg,
                                self.premult).view(gw, mb, 6, 64)
         meta = unpack_blob_meta(meta_esc, geom, gw, self.kmg, self.keg,
                                 self.nb_class_rep)
-        plan = [meta[k] for k in _PLAN_FIELDS]
+        return self.reconstruct(
+            carry, [coeffs, *(meta[k] for k in _PLAN_FIELDS)], flags)
+
+    def reconstruct(self, carry, plan, flags):
+        """The window's picture steps from its plan tensors: `plan` is
+        (coeffs, nblocks, intra_blk, src_sel, mv_h, mv_v) with a leading
+        axis of S*window pictures, stream s's at [s*window, (s+1)*window)
+        (what `forward` densifies and unpacks from the global blob, or the
+        sharded decoder from each stream's own blob).  Returns (carry,
+        displays) as `forward` does."""
+        geom = self.geom
+        pool, slots = carry
+        dev = pool.device
         table, disp, slots = self.step_tables(slots, flags)
         dev_table = torch.from_numpy(table).to(dev)
         dev_disp = torch.from_numpy(disp).to(dev)
@@ -133,7 +143,7 @@ class GlobalWindowDecoder(nn.Module):
             for c in range(0, self.n, per):
                 if (table[t, c:c + per, 4] >= 0).any():
                     cuda_kernels.reconstruct_pictures(
-                        pool, dev_table[t, c:c + per], coeffs, *plan, geom)
+                        pool, dev_table[t, c:c + per], *plan, geom)
             # Gathered per step: a displayed frame's slot may be the free
             # slot the next step writes.
             if self.emit_rgba:

@@ -1,0 +1,282 @@
+"""Multi-stream data parallelism over a list of torch devices.
+
+Port of `mpeg_tpu/parallel/sharding.py`.  Independent MPEG streams are
+embarrassingly parallel: the stream axis splits contiguously over the
+mesh's devices (S / len(devices) streams a device, as the reference's
+`P("streams")` does), each device decodes its own shard, and the only
+collective is a sum of the decoded pixel (or sample) counts — in int64,
+and `all_reduce`d over the process group when `torch.distributed` is
+initialized (`parallel.multihost` runs one process a host).
+
+A mesh is a plain list of devices.  Entries may repeat: `["cpu"] * 4`
+rehearses four devices on the CPU, `["cuda:0", "cuda:0"]` two on one
+card.  Shards live where their device is; carries, displays and audio
+history are lists with one tensor a shard, and `torch.cat` of a list
+(on one device) is the reference's global array.
+
+Transports mirror `parallel.batch`: window-pool blobs, one a stream
+(`make_sharded_blob_decoder`), and stacked dense plans
+(`make_sharded_scan_decoder`, the readable oracle).  Audio shards the
+same way (`make_sharded_audio_synth`).
+
+Every shard's work is enqueued before any result is waited on, so that
+shards on several cards overlap.  The host-to-device copies come from
+pageable memory and block the host, so the shards' copies run one after
+another.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..device import explicit_device
+from ..ops.filterbank import synthesize_window
+from ..ops.video_recon import FrameGeometry
+from .batch import (
+    _PLAN_FIELDS, DenseWindowDecoder, blob_layout, blob_split,
+    densify_split, pack_plans_blob, stack_plans, unpack_blob_meta,
+)
+from .multistream import GlobalWindowDecoder
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The devices of one process's stream shards, in stream order, and
+    the process group their counts are summed over (None outside
+    `torch.distributed`)."""
+
+    devices: tuple
+    axis: str = "streams"
+    group: object = None
+
+    def split(self, n_streams: int) -> list:
+        """(device, first stream, end stream) of each shard."""
+        n_dev = len(self.devices)
+        if n_streams % n_dev:
+            raise ValueError(f"{n_streams} streams do not split over "
+                             f"{n_dev} devices")
+        per = n_streams // n_dev
+        return [(d, i * per, (i + 1) * per)
+                for i, d in enumerate(self.devices)]
+
+
+def make_mesh(devices=None, axis: str = "streams") -> Mesh:
+    """A mesh of `devices` (default: every CUDA device; it raises without
+    one).  Entries are normalized to explicit indices ("cuda" becomes
+    "cuda:i" of the current device) and may repeat."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh(): CUDA is not available; pass "
+                               "devices (e.g. [\"cpu\"] * 4) to rehearse "
+                               "on the CPU")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = tuple(explicit_device(d) for d in devices)
+    if not devs:
+        raise ValueError("make_mesh(): no devices")
+    for d in devs:
+        if d.type == "cuda" and d.index >= torch.cuda.device_count():
+            raise ValueError(f"{d}: the machine has "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    import torch.distributed as dist
+    group = dist.group.WORLD \
+        if dist.is_available() and dist.is_initialized() else None
+    return Mesh(devs, axis, group)
+
+
+def _reduce_count(n: int, mesh: Mesh) -> torch.Tensor:
+    """The int64 sum of this process's count `n` over the mesh's process
+    group: a 0-d tensor on the mesh's first device under NCCL (filled on
+    the card, so nothing waits), else on the CPU."""
+    if mesh.group is None:
+        return torch.tensor(n, dtype=torch.int64)
+    import torch.distributed as dist
+    dev = mesh.devices[0] if dist.get_backend(mesh.group) == "nccl" \
+        else torch.device("cpu")
+    total = torch.full((), n, dtype=torch.int64, device=dev)
+    dist.all_reduce(total, group=mesh.group)
+    return total
+
+
+def zero_carry(geom: FrameGeometry, n_streams: int, mesh: Mesh):
+    """(current, forward, backward): three distinct lists, each with one
+    zeroed uint8 [S_d, total_size] tensor a shard, on its device."""
+    return tuple(
+        [torch.zeros((b - a, geom.total_size), dtype=torch.uint8, device=d)
+         for d, a, b in mesh.split(n_streams)]
+        for _ in range(3))
+
+
+def _n_streams(carry) -> int:
+    return sum(c.shape[0] for c in carry[0])
+
+
+def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
+                              km: int, ke: int):
+    """Multi-stream decoder over window-pool blobs, one a stream.
+
+    decode(carry, blobs uint8 [S, bytes]) -> (carry', displays, total_px):
+    `blobs` on the host (numpy, as `stack_stream_blobs` packs them), each
+    at the (km, ke) buckets; `displays` one uint8 [S_d, window,
+    total_size] tensor a shard; `total_px` the decoded pixels of every
+    stream (int64, summed over the process group).
+
+    Each shard copies its blobs to its device in one copy, densifies and
+    unpacks each stream (`densify_split`, `unpack_blob_meta`), then runs
+    one stream-batched K1 launch a step over its streams
+    (`GlobalWindowDecoder.reconstruct`: a frame pool of four frames a
+    stream and a slot table rotated on the host)."""
+    offs, total = blob_layout(geom, window, km, ke)
+    split = blob_split(geom, window, km, ke)
+    flags_off = offs["flags"][0]
+    mb = geom.mb_size
+    shards = {}   # (device, streams) -> GlobalWindowDecoder
+
+    def decode_shard(dec, carry_d, dev_blobs, flags):
+        s_d = dev_blobs.shape[0]
+        parts = []
+        for s in range(s_d):
+            meta_esc = dev_blobs[s, :split]
+            coeffs = densify_split(meta_esc, dev_blobs[s, split:], geom,
+                                   window, ke, dec.premult)
+            meta = unpack_blob_meta(meta_esc, geom, window, km, ke,
+                                    dec.nb_class_rep)
+            parts.append([coeffs.view(window, mb, 6, 64),
+                          *(meta[k] for k in _PLAN_FIELDS)])
+        plan = [torch.cat(p) for p in zip(*parts)]
+        return _pooled_window(dec, carry_d, plan, flags)
+
+    def decode(carry, blobs):
+        blobs = np.ascontiguousarray(blobs, dtype=np.uint8)
+        if blobs.ndim != 2 or blobs.shape[1] != total:
+            raise ValueError(f"blobs: expected uint8 [S, {total}], got "
+                             f"{blobs.shape}")
+        layout = mesh.split(blobs.shape[0])
+        if blobs.shape[0] != _n_streams(carry):
+            raise ValueError(f"{blobs.shape[0]} blobs for "
+                             f"{_n_streams(carry)} carried streams")
+        flags = np.ascontiguousarray(
+            blobs[:, flags_off:flags_off + 4 * window]).view(np.int32)
+        # All copies first: a blocking copy waits for its device's queue.
+        dev_blobs = [torch.from_numpy(blobs[a:b]).to(d)
+                     for d, a, b in layout]
+        outs = []
+        for i, (d, a, b) in enumerate(layout):
+            key = (d, b - a)
+            if key not in shards:
+                shards[key] = GlobalWindowDecoder(
+                    geom, b - a, window, km, ke, chunks=1).to(d)
+            outs.append(decode_shard(
+                shards[key], [c[i] for c in carry], dev_blobs[i],
+                flags[a:b].reshape(-1)))
+        px = int(np.count_nonzero(flags & 2)) * geom.frame_size
+        return _gather(outs) + (_reduce_count(px, mesh),)
+
+    return decode
+
+
+def _pooled_window(dec: GlobalWindowDecoder, carry_d, plan, flags):
+    """One shard's window through the pooled step engine: the carry's
+    three [S_d, total_size] frames go into a pool of four frames a stream,
+    and come back out as three new tensors after the window."""
+    cur, fwd, bwd = carry_d
+    s_d = cur.shape[0]
+    pool = torch.cat([cur, fwd, bwd, torch.empty_like(cur)])
+    slots = np.arange(4 * s_d, dtype=np.int64).reshape(4, s_d).T.copy()
+    (pool, slots), disps = dec.reconstruct((pool, slots), plan, flags)
+    index = torch.from_numpy(slots[:, :3].T.copy()).to(pool.device)
+    return tuple(pool[index[k]] for k in range(3)), disps
+
+
+def _gather(outs):
+    """[(carry_d, displays_d)] -> (carry as three lists, displays list)."""
+    carry = tuple([o[0][k] for o in outs] for k in range(3))
+    return carry, [o[1] for o in outs]
+
+
+def make_sharded_scan_decoder(geom: FrameGeometry, mesh: Mesh):
+    """The dense variant: decode(carry, plans) with `plans` the stacked
+    dense dict [S, T, ...] (`stack_stream_plans`), stream-major.  Each
+    stream of a shard runs the dense window module
+    (`batch.DenseWindowDecoder`: one K1 launch a valid picture).  Returns
+    (carry', displays, total_px) as the blob decoder does."""
+    dense = {}   # device -> DenseWindowDecoder
+
+    def decode(carry, plans):
+        n = np.asarray(plans["is_noop"]).shape[0]
+        if n != _n_streams(carry):
+            raise ValueError(f"plans of {n} streams for "
+                             f"{_n_streams(carry)} carried streams")
+        outs = []
+        for i, (d, a, b) in enumerate(mesh.split(n)):
+            if d not in dense:
+                dense[d] = DenseWindowDecoder(geom).to(d)
+            per_stream = [dense[d](
+                tuple(c[i][s - a] for c in carry),
+                {k: v[s] for k, v in plans.items()}) for s in range(a, b)]
+            outs.append((
+                tuple(torch.stack([c[k] for c, _ in per_stream])
+                      for k in range(3)),
+                torch.stack([disp for _, disp in per_stream])))
+        px = int(np.sum(1 - np.asarray(plans["is_noop"]))) * geom.frame_size
+        return _gather(outs) + (_reduce_count(px, mesh),)
+
+    return decode
+
+
+def stack_stream_plans(per_stream_plans, geom: FrameGeometry, window: int):
+    """[stream][(plan, type)] -> stream-major stacked dense plan dict
+    [S, T, ...]."""
+    stacked = [stack_plans(p, geom, window) for p in per_stream_plans]
+    return {k: np.stack([s[k] for s in stacked]) for k in stacked[0]}
+
+
+def stack_stream_blobs(per_stream_plans, geom: FrameGeometry, window: int,
+                       km: int, ke: int) -> np.ndarray:
+    """[stream][(plan, type)] -> window-pool blobs [S, total_bytes]."""
+    return np.stack([pack_plans_blob(p, geom, window, km, ke)
+                     for p in per_stream_plans])
+
+
+# --------------------------------------------------------------------------
+# Audio on the mesh
+# --------------------------------------------------------------------------
+
+def make_sharded_audio_synth(mesh: Mesh):
+    """Multi-stream MP2 synthesis over the mesh.
+
+    synth(samples [S, T, 2, 32] int32, hist) -> (u, hist', total):
+    `samples` on the host (numpy or a CPU tensor), T a multiple of 16 (4n
+    whole frames, see `filterbank.synthesize_window`); `hist`, `u` and
+    `hist'` lists with one tensor a shard (f32 [S_d, 15, 2, 64] and
+    [S_d, T, 2, 32]); `total` the int64 count of output samples a channel
+    over every stream, summed over the process group.  Each shard runs
+    `synthesize_window` on each of its streams, in eager torch ops.
+    Normalization stays with `filterbank.finalize`, which divides by a
+    tensor on u's device (the exact IEEE quotient)."""
+
+    def synth(samples, hist):
+        samples = torch.as_tensor(np.asarray(samples, np.int32))
+        if samples.dim() != 4 or tuple(samples.shape[2:]) != (2, 32):
+            raise ValueError(f"samples: expected [S, T, 2, 32], got "
+                             f"{tuple(samples.shape)}")
+        layout = mesh.split(samples.shape[0])
+        dev_samples = [samples[a:b].to(d) for d, a, b in layout]
+        us, hists = [], []
+        for i, (d, a, b) in enumerate(layout):
+            per_stream = [synthesize_window(dev_samples[i][s], hist[i][s])
+                          for s in range(b - a)]
+            us.append(torch.stack([u for u, _ in per_stream]))
+            hists.append(torch.stack([h for _, h in per_stream]))
+        n = samples.shape[0] * samples.shape[1] * 32
+        return us, hists, _reduce_count(n, mesh)
+
+    return synth
+
+
+def zero_audio_hist(n_streams: int, mesh: Mesh) -> list:
+    """One zeroed f32 [S_d, 15, 2, 64] history a shard."""
+    return [torch.zeros((b - a, 15, 2, 64), dtype=torch.float32, device=d)
+            for d, a, b in mesh.split(n_streams)]

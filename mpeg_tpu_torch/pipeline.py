@@ -125,12 +125,12 @@ class PipelineVideo(Video):
     plans straight from C++ (which demuxes internally), then reconstructs
     on the device — same rotation/flush semantics as Video."""
 
-    def __init__(self, pipe, feeder: ReaderFeeder, config=None, *,
-                 device="cuda"):
+    def __init__(self, pipe, feeder: ReaderFeeder, backend: str = None,
+                 config=None, *, device="cuda"):
         self._pipe = pipe
         self._feeder = feeder
-        super().__init__(Buffer(None), parser="native", config=config,
-                         device=device)
+        super().__init__(Buffer(None), backend=backend, parser="native",
+                         config=config, device=device)
 
     # -- pipeline plumbing (replaces the push-buffer marshaling) -----------
 
@@ -210,14 +210,14 @@ class PipelineAudio(Audio):
     """Audio surface over the native pipeline; supports the post-seek
     PTS anchor latched by the C++ router."""
 
-    def __init__(self, pipe, feeder: ReaderFeeder, config=None, *,
-                 device="cuda"):
+    def __init__(self, pipe, feeder: ReaderFeeder, backend: str = None,
+                 config=None, *, device="cuda"):
         self._pipe = pipe
         self._feeder = feeder
         self._anchor_pending = False
         self._anchor_base = 0.0
-        super().__init__(Buffer(None), parser="native", config=config,
-                         device=device)
+        super().__init__(Buffer(None), backend=backend, parser="native",
+                         config=config, device=device)
 
     def _native_feed(self) -> bool:
         if self._native is None:

@@ -1,14 +1,15 @@
-"""Decode counters (the port's copy of `mpeg_tpu/utils/profiling.py`).
+"""Decode counters and device trace capture (the port's copy of
+`mpeg_tpu/utils/profiling.py`).
 
-`DecodeStats` splits host parse from device dispatch time per window.
-The reference's `device_trace` (a jax.profiler capture) has no copy here:
-its torch.profiler counterpart comes with the port's bench leg
-(ROADMAP); `chip_smoke.py` runs torch.profiler itself meanwhile.
+`DecodeStats` splits host parse from device dispatch time per window;
+`device_trace` captures a torch.profiler trace of a block.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -73,3 +74,55 @@ class DecodeStats:
                 "d2h_seconds": round(self.d2h_seconds, 3)}
                if self.detailed else {}),
         }
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Capture a torch.profiler trace of everything inside the block (CPU
+    activity, and CUDA activity when a card is present) into `log_dir`.
+
+    Yields a dict that is filled in when the block ends: "trace" (the
+    Chrome trace file, or None), "device_recorded" (whether the trace
+    holds device activity; None without a card) and "note" (why something
+    is missing).  The profiler records no device activity at all in some
+    sessions on the card's machine: the capture then says so in its
+    result and in `log_dir/NOTE.json`, and never raises for it (an
+    exception raised by the block itself passes through)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    result = {"log_dir": log_dir, "trace": None,
+              "device_recorded": False if cuda else None, "note": None}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = profile(activities=acts)
+    try:
+        prof.__enter__()
+    except RuntimeError as e:   # the profiler could not start
+        prof = None
+        result["note"] = f"torch.profiler did not start: {e}"
+    try:
+        yield result
+    finally:
+        if prof is not None:
+            try:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                path = os.path.join(log_dir, "trace.json")
+                prof.export_chrome_trace(path)
+                result["trace"] = path
+                if cuda:
+                    result["device_recorded"] = any(
+                        k.device_type.name == "CUDA" and
+                        k.device_time_total > 0
+                        for k in prof.key_averages())
+                    if not result["device_recorded"]:
+                        result["note"] = ("torch.profiler recorded no "
+                                          "device activity")
+            except RuntimeError as e:
+                result["note"] = f"torch.profiler failed: {e}"
+        if result["note"] is not None:
+            with open(os.path.join(log_dir, "NOTE.json"), "w") as f:
+                json.dump(result, f)

@@ -130,26 +130,31 @@ class _PicturePlan:
         self.mv_v = np.zeros(mb_size, np.int32)
 
 
-def _check_backend(backend: str) -> None:
+def _check_backend(backend, cfg, allowed=("torch", "plan")) -> str:
+    """The backend an entry point runs: `backend`, or `cfg.backend` when it
+    is None.  The JAX package's "jax" and "numpy" raise, as does any name
+    outside `allowed` (`MPEG` and `Audio` allow only "torch")."""
+    backend = backend if backend is not None else cfg.backend
     if backend in ("jax", "numpy"):
         raise ValueError(
             f"backend={backend!r} is the JAX package's; the port has the "
             "\"torch\" backend: device=\"cuda\" runs the kernels, "
             "device=\"cpu\" their plain versions")
-    if backend not in ("torch", "plan"):
-        raise ValueError(f"unknown backend {backend!r} (expected \"torch\" "
-                         "or \"plan\")")
+    if backend not in allowed:
+        raise ValueError(f"unknown backend {backend!r} (expected "
+                         + " or ".join(f'"{b}"' for b in allowed) + ")")
+    return backend
 
 
 class Video:
     """MPEG-1 video decoder: pulls an ES from `buf`, yields Frames."""
 
-    def __init__(self, buf: Buffer, backend: str = "torch",
+    def __init__(self, buf: Buffer, backend: str = None,
                  parser: str = None, config=None, *, device="cuda"):
         """`backend`: "torch" (reconstruct on `device`) or "plan" (parse
         only; the frames stay on the CPU).  `parser`: "python", "native"
-        (C++) or "auto" (native when available, python otherwise); unset,
-        it falls back to `config` (default config.DEFAULT).  `device`:
+        (C++) or "auto" (native when available, python otherwise).  Unset,
+        both fall back to `config` (default config.DEFAULT).  `device`:
         "cuda" (the default; raises without a card) or "cpu".
 
         Transport: each picture ships as a delta-encoded pool-record blob
@@ -160,7 +165,7 @@ class Video:
         """
         from .config import DEFAULT
         cfg = config if config is not None else DEFAULT
-        _check_backend(backend)
+        backend = _check_backend(backend, cfg)
         parser = parser if parser is not None else cfg.parser
         self.buf = buf
         self.backend = backend

@@ -202,11 +202,15 @@ def test_device_is_explicit(mpeg1video_path):
 
 
 def test_unported_options_raise(mpeg1video_path):
-    """The dense transport is still to port and raises; RGBA output is
-    ported (tests/test_torch_color.py) and no longer does."""
+    """Every option of the JAX decoder is ported: RGBA output
+    (tests/test_torch_color.py) and the dense transport
+    (tests/test_torch_dense.py) no longer raise.  The dense transport
+    still refuses the native parse, as the reference does."""
     data = open(mpeg1video_path, "rb").read()
     assert BatchVideoDecoder(data, window=4, device="cpu",
                              emit_rgba=True).emit_rgba
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert BatchVideoDecoder(data, window=4, device="cpu", transport="dense",
+                             use_native=False).transport == "dense"
+    with pytest.raises(ValueError, match="use_native=False"):
         BatchVideoDecoder(data, window=4, device="cpu", transport="dense",
-                          use_native=False)
+                          use_native=True)

@@ -1,8 +1,9 @@
 """The port stands alone: a fresh interpreter that refuses every import of
 jax, of the JAX package `mpeg_tpu` and of its `native` sources loads the
 whole port and chip_smoke.py, decodes CPU windows (native and Python
-parse), lockstep rounds of two streams, and video frames and audio
-through `MPEG` and `Audio`, and ends with none of them loaded."""
+parse), lockstep rounds of two streams, a sharded window over a mesh of
+two CPU devices, and video frames and audio through `MPEG` and `Audio`,
+and ends with none of them loaded."""
 
 import os
 import pathlib
@@ -40,7 +41,9 @@ import mpeg_tpu_torch.ops.filterbank
 import mpeg_tpu_torch.ops.video_recon
 import mpeg_tpu_torch.parallel
 import mpeg_tpu_torch.parallel.audio_batch
+import mpeg_tpu_torch.parallel.multihost
 import mpeg_tpu_torch.parallel.multistream
+import mpeg_tpu_torch.parallel.sharding
 import mpeg_tpu_torch.pipeline
 import mpeg_tpu_torch.tables
 import mpeg_tpu_torch.testing
@@ -75,6 +78,21 @@ buf = mpeg_tpu_torch.Buffer(open("tests/testdata/test.mp2", "rb"))
 buf.set_load_callback(buf.load_reader_callback)
 a = mpeg_tpu_torch.Audio(buf, device="cpu")
 assert a.decode().s16.dtype.name == "int16"
+from mpeg_tpu_torch.parallel import sharding as sh
+from mpeg_tpu_torch.parallel.batch import count_pool_records, pool_bucket
+videos = [mpeg_tpu_torch.Video(mpeg_tpu_torch.Buffer(open(
+    "tests/testdata/test.mpeg1video", "rb")), "plan") for _ in range(2)]
+for v in videos:
+    v.buf.set_load_callback(v.buf.load_reader_callback)
+per_stream = [[v.parse_next_plan() for _ in range(3)] for v in videos]
+km = pool_bucket(max(count_pool_records(p)[0] for p in per_stream), 4096)
+mesh = sh.make_mesh(["cpu", "cpu"])
+decode = sh.make_sharded_blob_decoder(videos[0].geom, mesh, 3, km, 64)
+carry, disps, px = decode(sh.zero_carry(videos[0].geom, 2, mesh),
+                          sh.stack_stream_blobs(per_stream, videos[0].geom,
+                                                3, km, 64))
+assert len(disps) == 2 and disps[1].shape == (1, 3, 33280), disps[1].shape
+assert int(px) == 6 * videos[0].geom.frame_size and disps[1].any()
 probe = mpeg_tpu_torch.probe()
 assert probe["torch"] and "cuda_available" in probe
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in _BLOCKED)
@@ -99,10 +117,12 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_name_no_jax():
-    """No source file of the port, nor chip_smoke.py, imports jax, the
-    JAX package or its native sources, even lazily."""
-    for path in [*(REPO / "mpeg_tpu_torch").rglob("*.py"),
-                 REPO / "chip_smoke.py"]:
+    """No source file of the port, nor its examples or chip_smoke.py,
+    imports jax, the JAX package or its native sources, even lazily."""
+    paths = [*(REPO / "mpeg_tpu_torch").rglob("*.py"),
+             *(REPO / "examples_torch").glob("*.py"), REPO / "chip_smoke.py"]
+    assert len(paths) > 30
+    for path in paths:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
 
