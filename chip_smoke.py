@@ -4,12 +4,17 @@
     python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
-(and the C++ host parser with g++, at the same time) and holds each
-kernel against its plain PyTorch version on the card at 1080p (K1 on
-adversarial plans, one picture and 64 streams in one launch; K2; K3, the
-whole path and its two plane launches alone; K1 and K3 on the 1080p
-fixture's 32 pictures in decode order), each timed beside its byte
-bound, then drives every path of the port and checks its output:
+(recon.cu and synth.cu, each its own library, and the C++ host parser
+with g++, all at the same time) and holds each kernel against its plain
+PyTorch version on the card at 1080p (K1 on adversarial plans, one
+picture and 64 streams in one launch; K2; K3, the whole path and its two
+plane launches alone; K1 and K3 on the 1080p fixture's 32 pictures in
+decode order), each timed beside its byte bound, and K4, the MP2
+synthesis, bit for bit in every form (`k4`: the ring form from all 16 V
+positions, a 32-frame window as f32, s16 and raw outputs, 8 streams in
+one launch), timed per frame and per window in turns with its plain
+version beside its bound and the launch floor; then drives every path
+of the port and checks its output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
   device="cuda")` against their golden hashes;
@@ -22,15 +27,15 @@ bound, then drives every path of the port and checks its output:
   frame against the C++ host decoder, then timed and profiled;
 - `rgba`: the 1080p fixture with `emit_rgba=True` against numpy;
 - `audio`: MP2 through `Audio(device="cuda")` and `BatchAudioDecoder`
-  (f32, s16, `out_device`) against the no-FMA golden and each other,
-  timed, with the synthesis filterbank's card ms and launches a frame
-  and a window;
+  (f32, s16, `out_device`) against the no-FMA golden and each other, K4
+  launched once a frame and once a window, timed;
 - `interactive_golden`: `Video(device="cuda")` (both parsers) and
   `MPEG(test.mpg, device="cuda")` against the goldens, K1 launched once
   a picture, and a seek;
 - `interactive_1080p`: a 1080p A/V program stream (the 1080p fixture and
   test.mp2, muxed by tools/ps_mux.py) through `MPEG.decode(tick)`, video
-  against the C++ host decoder and audio against the CPU, timed;
+  against the C++ host decoder and audio against the CPU, K4 launched
+  once an audio frame, timed;
 - `dense`: `BatchVideoDecoder(transport="dense")` (the Python parse) on
   the golden, then on the 1080p fixture cut to 9 pictures against the
   blob transport and the C++ host decoder;
@@ -38,7 +43,7 @@ bound, then drives every path of the port and checks its output:
   native window blobs through `parallel.sharding` on the card's mesh and
   on the card listed twice, every frame against the C++ host decoder and
   the int64 pixel count exact, timed; and the sharded MP2 synthesis
-  against the single-stream one and the golden;
+  (one K4 launch a shard) against the single-stream one and the golden;
 - `multihost`: `parallel.multihost.launch` as one NCCL process and as two
   gloo processes on the card, each on the golden;
 - `examples`: the seven `examples_torch/` scripts on the card, at once,
@@ -52,22 +57,24 @@ pictures, the adversarial plan and (K1) 64-stream launches.
 
 Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
 plain version's `plain_ms` is the wall of back-to-back calls by CUDA
-events (`cuda_ms`), its own host waits included.  The MP2 filterbank (a
-few hundred plain torch launches a call) is timed on the card by CUDA
-events around CUDA-graph replays (`graph_ms`).  torch.profiler only
+events (`cuda_ms`), its own host waits included.  K4's plain version (a
+few hundred plain torch launches a call) is also timed on the card by
+CUDA events around CUDA-graph replays (`graph_ms`).  torch.profiler only
 measures the profiled decode passes' idle share.
 
-Each path's kernel launch counts are set to 0 just before it runs and
-read just after.  Every phase prints one JSON line; any failure raises,
-so the exit code is nonzero and the closing `{"ok": true, ...}` line
-never prints.  Without a CUDA device, or outside a checkout of the
-repository, it exits nonzero before printing any result.  Imports
-nothing of JAX.
+Each path's kernel launch counts (the wrappers' counters) are set to 0
+just before it runs and read just after; the MP2 paths also fail if the
+plain filterbank sees a CUDA tensor.  Every phase prints one JSON line;
+any failure raises, so the exit code is nonzero and the closing
+`{"ok": true, ...}` line never prints.  Without a CUDA device, or
+outside a checkout of the repository, it exits nonzero before printing
+any result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -195,25 +202,31 @@ def _ptxas_lines(log: str) -> list:
 
 
 def phase_build() -> None:
-    """nvcc (the kernels) and g++ (the host parser) at the same time."""
+    """nvcc (one process a kernel source) and g++ (the host parser), all
+    at the same time."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mpeg_tpu_torch import native
     from mpeg_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        kernels = pool.submit(_build.build)
+    with ThreadPoolExecutor(len(_build.LIBRARIES) + 1) as pool:
+        kernels = {name: pool.submit(_build.build_library, name)
+                   for name in _build.LIBRARIES}
         parser = pool.submit(native.build)
-        so, log = kernels.result()
+        built = {name: f.result() for name, f in kernels.items()}
         parser_so = parser.result()
     secs = time.perf_counter() - t0
     lib = _build.load()
+    _build.load("synth")
     native.load()
-    emit({"phase": "build", "library": os.path.relpath(so, REPO),
+    emit({"phase": "build",
+          "libraries": {name: {"library": os.path.relpath(so, REPO),
+                               "flags": _build.nvcc_flags(name),
+                               "ptxas": _ptxas_lines(log)}
+                        for name, (so, log) in built.items()},
           "parser_library": os.path.relpath(parser_so, REPO),
-          "seconds": secs, "flags": _build.NVCC_FLAGS,
-          "ptxas": _ptxas_lines(log),
+          "seconds": secs,
           "k1_dynamic_smem_bytes": lib.mt_reconstruct_smem_bytes(),
           "k3_dynamic_smem_bytes": {"luma": lib.mt_plane_smem_bytes(0),
                                     "chroma": lib.mt_plane_smem_bytes(1)}})
@@ -376,6 +389,143 @@ def phase_kernel_parity(seed: int) -> dict:
     return out
 
 
+def _subbands(rng, streams: int, steps: int, edge: bool = False):
+    """int32 [S, T, 2, 32] subband samples to 2^18 in magnitude (twice the
+    parsers' range) with silent subbands; `edge`: whole steps at +-2^18
+    and whole subbands silent."""
+    import numpy as np
+
+    s = rng.integers(-(1 << 18), 1 << 18, (streams, steps, 2, 32))
+    s[rng.random(s.shape) < 0.3] = 0
+    if edge:
+        s[:, ::3] = 1 << 18
+        s[:, 1::3] = -(1 << 18)
+        s[..., 20:] = 0
+    return s.astype(np.int32)
+
+
+def phase_k4(seed: int, launch_floor_ms: float) -> dict:
+    """K4 against its plain version (`ops.filterbank` on the same CUDA
+    tensors), bit for bit: the ring form (`synthesize_ring`, Audio's
+    launch) from all 16 V positions on one frame; a 32-frame window
+    (`synthesize`, BatchAudioDecoder's launch) and 8 streams in one
+    launch (the sharded synthesis'), on random and edge samples; each in
+    the u, f32 and s16 forms, with the new ring or history.  Then timed
+    in turns (plain, K4, K4, plain, twice) per frame (ring, f32), per
+    window (f32 and s16) and per 8-stream window (u): K4 by `queued_ms`,
+    the plain version by `graph_ms` (card) and `cuda_ms` (wall), beside
+    K4's bound (`cuda_kernels.synth_bound`) and the launch floor (K2 on
+    one CTA, `kernel_parity`).  Also the plain version's launches a call
+    (`count_launches`: its aten ops; K4 is one launch)."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels as ck
+    from mpeg_tpu_torch.ops import filterbank
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    err = 0.0
+    form = ck._plain_form            # the plain version's output forms
+
+    def check(got, want, what):
+        nonlocal err
+        torch.cuda.synchronize()
+        err = max(err, float((got.double() - want.double()).abs().max()))
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"k4 differs from its plain version: {what}")
+
+    ck.reset_launches()
+    cases = 0
+    for v_pos in range(0, 1024, 64):
+        x = torch.from_numpy(_subbands(rng, 1, 36, v_pos % 128 == 64)).to(dev)
+        ring = torch.from_numpy((rng.standard_normal((1, 2, 1024)) * 3e4)
+                                .astype(np.float32)).to(dev)
+        u, want_ring, want_pos = filterbank.synthesize_frame(x[0], ring[0],
+                                                             v_pos)
+        for out in ("u", "f32", "s16"):
+            got, got_ring, pos = ck.synthesize_ring(x, ring, v_pos, out=out)
+            check(got[0], form(u, out), f"ring from {v_pos}, {out}")
+            check(got_ring[0], want_ring, f"ring from {v_pos}: the ring")
+            if pos != want_pos:
+                fail(f"k4 ring from {v_pos}: position {pos}, want {want_pos}")
+            cases += 1
+    for streams, edge in ((1, False), (1, True), (8, False), (8, True)):
+        x = torch.from_numpy(_subbands(rng, streams, 32 * 36, edge)).to(dev)
+        hist = torch.from_numpy((rng.standard_normal((streams, 15, 2, 64))
+                                 * 1e4).astype(np.float32)).to(dev)
+        plain = [filterbank.synthesize_window(x[s], hist[s])
+                 for s in range(streams)]
+        u = torch.stack([p[0] for p in plain])
+        want_hist = torch.stack([p[1] for p in plain])
+        for out in ("u", "f32", "s16"):
+            got, got_hist = ck.synthesize(x, hist, out=out)
+            what = f"{streams} streams, edge={edge}, {out}"
+            check(got, form(u, out), what)
+            check(got_hist, want_hist, f"{what}: the history")
+            cases += 1
+        # Two windows, the history carried, equal one window of both.
+        half = x.shape[1] // 2
+        first, h1 = ck.synthesize(x[:, :half].contiguous(), hist)
+        second, h2 = ck.synthesize(x[:, half:].contiguous(), h1)
+        check(torch.cat([first, second], 1), u, f"{streams} streams, "
+              "two windows")
+        check(h2, want_hist, f"{streams} streams, two windows: history")
+        cases += 2
+    if ck.synthesize.launches != cases:
+        fail(f"k4 launched {ck.synthesize.launches} times for {cases} calls")
+
+    # Timing, at the paths' shapes.
+    x1 = torch.from_numpy(_subbands(rng, 1, 32 * 36)).to(dev)
+    x8 = torch.from_numpy(_subbands(rng, 8, 32 * 36)).to(dev)
+    h1 = torch.zeros((1, 15, 2, 64), dtype=torch.float32, device=dev)
+    h8 = torch.zeros((8, 15, 2, 64), dtype=torch.float32, device=dev)
+    ring = torch.zeros((1, 2, 1024), dtype=torch.float32, device=dev)
+    frame = x1[:, :36].contiguous()
+    timed = {
+        "frame": (lambda: ck.synthesize_ring(frame, ring, 0, out="f32"),
+                  lambda: filterbank.finalize(filterbank.synthesize_frame(
+                      frame[0], ring[0], 0)[0]), 200, 50, (1, 36, "f32", True)),
+        "window": (lambda: ck.synthesize(x1, h1, out="f32"),
+                   lambda: filterbank.finalize(filterbank.synthesize_window(
+                       x1[0], h1[0])[0]), 200, 20, (1, 1152, "f32", False)),
+        "window_s16": (lambda: ck.synthesize(x1, h1, out="s16"),
+                       lambda: filterbank.synthesize_window_s16(x1[0], h1[0]),
+                       200, 20, (1, 1152, "s16", False)),
+        "sharded_8": (lambda: ck.synthesize(x8, h8, out="u"),
+                      lambda: [filterbank.synthesize_window(x8[s], h8[s])
+                               for s in range(8)], 200, 5,
+                      (8, 1152, "u", False)),
+    }
+    out = {"phase": "k4", "equal": True, "calls_checked": ck.synthesize
+           .launches, "max_abs_err": err, "launch_floor_ms": launch_floor_ms,
+           "unit": "ms a call", "timed_by": {
+               "ms": "cuda_events_queued", "plain_graph_ms":
+               "cuda_events_graph_replay", "plain_ms": "cuda_events_wall"}}
+    for name, (k4, plain, k_iters, p_iters, shape) in timed.items():
+        got = {"ms": [], "plain_graph_ms": []}
+        for _ in range(2):
+            for who in ("plain", "k4", "k4", "plain"):
+                if who == "k4":
+                    got["ms"].append(queued_ms(k4, k_iters))
+                else:
+                    got["plain_graph_ms"].append(graph_ms(plain, p_iters))
+        bound = ck.synth_bound(*shape[:3], ring=shape[3])
+        out[name] = {
+            "streams": shape[0], "steps": shape[1], "out": shape[2],
+            "ms": statistics.median(got["ms"]), "all_ms": got["ms"],
+            "plain_graph_ms": statistics.median(got["plain_graph_ms"]),
+            "all_plain_graph_ms": got["plain_graph_ms"],
+            "plain_ms": cuda_ms(plain, p_iters),
+            "plain_launches": count_launches(plain),
+            "bound_ms": bound["us"] / 1e3, "bound_by": bound["bound_by"],
+            "bound_bytes": bound["bytes"], "bound_flops": bound["flops"]}
+    emit(out)
+    return out
+
+
 def _fixture_1080p() -> bytes:
     return open(os.path.join(TESTDATA, "test1080.m1v"), "rb").read()
 
@@ -518,7 +668,8 @@ def _turns(source: str, geom, pics, fixture_res) -> dict:
     from mpeg_tpu_torch.ops import _build, cuda_kernels
     from mpeg_tpu_torch.testing import plan_args, random_plan
 
-    so, log = _build.build(os.path.abspath(source))
+    so, log = _build.build(os.path.abspath(source),
+                           _build.nvcc_flags("recon"))
     lib = _build.bind(so)
     dev = torch.device("cuda")
 
@@ -1083,7 +1234,10 @@ def phase_rgba() -> None:
 def count_launches(fn) -> int:
     """Kernel launches of one call of `fn`, counted as the aten ops it
     dispatches that are not views: each elementwise op, copy, gather,
-    fill or cat of the filterbank is one launch."""
+    fill or cat of the plain filterbank is one launch.  A kernel launched
+    through ctypes (K1-K4) is no aten op: its launches are the wrappers'
+    counters, and what this counts around a wrapper call is its copies
+    and allocations."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -1097,6 +1251,31 @@ def count_launches(fn) -> int:
     with Count():
         fn()
     return Count.n
+
+
+@contextlib.contextmanager
+def no_plain_synthesis():
+    """Fails the run when the plain filterbank runs on the card inside:
+    every plain synthesis calls `filterbank.dct32`, which is wrapped
+    meanwhile to record the CUDA tensors it gets (a CUDA path must go
+    through K4)."""
+    from mpeg_tpu_torch.ops import filterbank
+
+    plain, on_card = filterbank.dct32, []
+
+    def dct32(x):
+        if x.device.type == "cuda":
+            on_card.append(tuple(x.shape))
+        return plain(x)
+
+    filterbank.dct32 = dct32
+    try:
+        yield
+    finally:
+        filterbank.dct32 = plain
+    if on_card:
+        fail(f"the plain filterbank ran on the card {len(on_card)} times "
+             f"(shapes {on_card[:3]})")
 
 
 def _passes(run, n: int = E2E_PASSES) -> list:
@@ -1126,90 +1305,99 @@ def _pcm_hash(chunks) -> int:
 
 def phase_audio() -> dict:
     """MP2 on the card: `Audio(device="cuda")` on test.mp2 on the no-FMA
-    golden; `BatchAudioDecoder` at window 32, f32 on the golden, s16
-    equal to the s16 the host derives from those samples, and
-    `out_device=True` equal to both.  Then timed (median of 3 after a
-    warm-up): Audio.decode and BatchAudioDecoder frames/s, and the
-    filterbank's card ms (`graph_ms`), wall ms (`cuda_ms`) and launches
-    (`count_launches`) a frame (`synthesize_frame` + `finalize`) and a
-    32-frame window (`synthesize_window` + `finalize`)."""
+    golden with K4 launched once a frame; `BatchAudioDecoder` at window
+    32 with K4 launched once a window, f32 on the golden, s16 equal to the
+    s16 the host derives from those samples, and `out_device=True` equal
+    to both; no plain filterbank op on the card in any of them.  Then
+    timed (median of 3 after a warm-up): Audio.decode and
+    BatchAudioDecoder frames/s, and the aten ops (copies, allocations:
+    `count_launches`) of one `Audio._synthesize`, beside its one K4
+    launch."""
     import io
 
     import numpy as np
-    import torch
 
     from mpeg_tpu_torch import Audio, Buffer
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
-    from mpeg_tpu_torch.ops import filterbank
+    from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import BatchAudioDecoder
 
     data = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
 
-    def decode_audio():
+    def new_audio():
         buf = Buffer(io.BytesIO(data))
         buf.set_load_callback(buf.load_reader_callback)
-        audio = Audio(buf, device="cuda")
+        return Audio(buf, device="cuda")
+
+    def decode_audio():
+        audio = new_audio()
         frames = []
         while (smp := audio.decode()) is not None:
             frames.append(smp.interleaved)
         return frames
 
-    frames = decode_audio()
+    def k4_launches(run, want, what: str):
+        """(run(), K4's count in it) with the count from 0 and no plain
+        filterbank on the card; K4 launched want(result) times."""
+        cuda_kernels.reset_launches()
+        with no_plain_synthesis():
+            got = run()
+        launches = cuda_kernels.synthesize.launches
+        if launches != want(got):
+            fail(f"{what}: K4 launched {launches} times, want {want(got)}")
+        return got, launches
+
+    frames, frame_launches = k4_launches(decode_audio, len, "Audio")
     if (len(frames), _pcm_hash(frames)) != GOLDEN_AUDIO:
         fail(f"Audio: {len(frames)} frames, hash {_pcm_hash(frames):#018x}")
-    f32 = BatchAudioDecoder(data, window=32, device="cuda").decode_all()
+    n = len(frames)
+
+    def windows_of(pcm):             # 32 frames of 2,304 samples a window
+        return -(-len(pcm) // (32 * 2304))
+    f32, window_launches = k4_launches(
+        BatchAudioDecoder(data, window=32, device="cuda").decode_all,
+        windows_of, "BatchAudioDecoder f32")
     if _pcm_hash([f32]) != GOLDEN_AUDIO[1] or \
             not np.array_equal(f32, np.concatenate(frames)):
         fail(f"BatchAudioDecoder f32: hash {_pcm_hash([f32]):#018x}")
-    s16 = BatchAudioDecoder(data, window=32, out_format="s16",
-                            device="cuda").decode_all()
+    s16, _ = k4_launches(BatchAudioDecoder(data, window=32, out_format="s16",
+                                           device="cuda").decode_all,
+                         windows_of, "BatchAudioDecoder s16")
     want_s16 = np.trunc(np.where(f32 < 0, f32 * np.float32(0x8000),
                                  f32 * np.float32(0x7FFF))).astype(np.int16)
     if not np.array_equal(s16, want_s16):
         fail("BatchAudioDecoder s16 differs from the host s16 of f32")
     for fmt, want in (("f32", f32), ("s16", s16)):
-        dev = BatchAudioDecoder(data, window=32, out_format=fmt,
-                                out_device=True, device="cuda").decode_all()
+        dev, _ = k4_launches(BatchAudioDecoder(
+            data, window=32, out_format=fmt, out_device=True,
+            device="cuda").decode_all, windows_of, f"out_device {fmt}")
         if dev.device.type != "cuda" or \
                 not np.array_equal(dev.cpu().numpy(), want):
             fail(f"BatchAudioDecoder out_device {fmt} differs")
 
-    n = len(frames)
     audio_walls = _passes(decode_audio)
     batch_walls = _passes(lambda: BatchAudioDecoder(
         data, window=32, device="cuda").decode_all())
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    xs = torch.from_numpy(rng.integers(-1 << 17, 1 << 17, (32 * 36, 2, 32))
-                          .astype(np.int32)).to(dev)
-    hist = torch.zeros((15, 2, 64), dtype=torch.float32, device=dev)
-    ring = torch.zeros((2, 1024), dtype=torch.float32, device=dev)
-
-    def window():
-        return filterbank.finalize(filterbank.synthesize_window(xs, hist)[0])
-
-    def frame():
-        return filterbank.finalize(
-            filterbank.synthesize_frame(xs[:36], ring, 0)[0])
-
+    audio = new_audio()
+    sub = np.random.default_rng(0).integers(
+        -1 << 17, 1 << 17, (36, 2, 32)).astype(np.int32)
     out = {"phase": "audio", "card": gpu_name_and_power_limit(),
            "frames": n, "hash": f"{_pcm_hash(frames):#018x}",
            "want": f"{GOLDEN_AUDIO[1]:#018x}", "batch_f32_golden": True,
            "batch_s16_equal_host_s16": True, "out_device_equal": True,
+           "k4_launches": frame_launches,
+           "batch_windows": windows_of(f32),
+           "batch_k4_launches": window_launches,
+           "launches_counted_by": "the wrapper's counter "
+           "(cuda_kernels.synthesize.launches)",
            "audio_fps_median": n / statistics.median(audio_walls),
            "audio_walls_s": audio_walls,
            "batch_fps_median": n / statistics.median(batch_walls),
            "batch_walls_s": batch_walls,
-           "window_frames": 32,
-           "window_ms": graph_ms(window, 20),
-           "window_wall_ms": cuda_ms(window, 20),
-           "window_launches": count_launches(window),
-           "frame_ms": graph_ms(frame, 50),
-           "frame_wall_ms": cuda_ms(frame, 50),
-           "frame_launches": count_launches(frame),
-           "timed_by": {"window_ms": "cuda_events_graph_replay",
-                        "window_wall_ms": "cuda_events_wall"}}
+           "synthesize_aten_ops_a_frame": count_launches(
+               lambda: audio._synthesize(sub)),
+           "aten_ops_counted_by": "count_launches: the h2d and d2h copies "
+           "and the allocations, not the ctypes launch"}
     emit(out)
     return out
 
@@ -1230,8 +1418,8 @@ def phase_interactive_golden() -> dict:
     """The reference-shaped API on the card: `Video(device="cuda")` on
     test.mpeg1video with both parsers, and `MPEG(test.mpg,
     device="cuda")` (decode_video, decode_audio), each on its golden with
-    K1 launched once a picture; `seek(3.0, True)` fires the video
-    callback once."""
+    K1 launched once a picture and K4 once an audio frame;
+    `seek(3.0, True)` fires the video callback once."""
     import io
 
     from mpeg_tpu_torch import MPEG, Buffer, Video
@@ -1277,12 +1465,16 @@ def phase_interactive_golden() -> dict:
     m = MPEG(ps, device="cuda")
     m.set_video_enabled(False)
     pcm = []
-    while (smp := m.decode_audio()) is not None:
-        pcm.append(smp.interleaved)
-    out["mpeg_audio"] = {"frames": len(pcm), "hash": f"{_pcm_hash(pcm):#018x}"}
-    if (len(pcm), _pcm_hash(pcm)) != GOLDEN_PS_AUDIO:
+    cuda_kernels.reset_launches()
+    with no_plain_synthesis():
+        while (smp := m.decode_audio()) is not None:
+            pcm.append(smp.interleaved)
+    launches = cuda_kernels.synthesize.launches
+    out["mpeg_audio"] = {"frames": len(pcm), "hash": f"{_pcm_hash(pcm):#018x}",
+                         "k4_launches": launches}
+    if (len(pcm), _pcm_hash(pcm)) != GOLDEN_PS_AUDIO or launches != len(pcm):
         fail(f"MPEG.decode_audio: {len(pcm)} frames, hash "
-             f"{_pcm_hash(pcm):#018x}")
+             f"{_pcm_hash(pcm):#018x}, K4 launched {launches} times")
     m = MPEG(ps, device="cuda")
     count = [0]
     m.set_video_callback(lambda mp, f: count.__setitem__(0, count[0] + 1))
@@ -1328,7 +1520,8 @@ def phase_interactive_1080p() -> dict:
     `MPEG(..., device="cuda").decode(tick)` with both callbacks, every
     video frame against the C++ host decoder on the 1080p ES and the
     audio against `MPEG(..., device="cpu")` on the same bytes, K1's
-    launches read from that run; then timed (median of 3 after a
+    and K4's launches read from that run (once a picture, once an audio
+    frame; no plain filterbank op on the card); then timed (median of 3 after a
     warm-up): video and audio frames/s, the share of the wall in the host
     parse (the pipeline's picture and frame pulls), in each picture's
     blob pack, transfer and launches (`Video._reconstruct`) and in each
@@ -1349,16 +1542,21 @@ def phase_interactive_1080p() -> dict:
     frames, pcm = [], []
     m = MPEG(ps, device="cuda")
     cuda_kernels.reset_launches()
-    _clock_decode(m, lambda _m, f: frames.append(f.flat.clone()),
-                  lambda _m, smp: pcm.append(smp.interleaved.copy()))
+    with no_plain_synthesis():
+        _clock_decode(m, lambda _m, f: frames.append(f.flat.clone()),
+                      lambda _m, smp: pcm.append(smp.interleaved.copy()))
     torch.cuda.synchronize()
     launches = cuda_kernels.reconstruct_picture.launches
+    k4_launches = cuda_kernels.synthesize.launches
     pictures = _video_pictures(ps)
     geom = m.video().geom
     _check_against_host(frames, want, geom.frame_size, "interactive 1080p")
     if len(frames) != 32 or launches != pictures:
         fail(f"interactive 1080p: {len(frames)} frames, K1 launched "
              f"{launches} times for {pictures} pictures")
+    if k4_launches != len(pcm):
+        fail(f"interactive 1080p: K4 launched {k4_launches} times for "
+             f"{len(pcm)} audio frames")
     if not pcm or len(pcm) != len(cpu_pcm) or \
             not np.array_equal(np.concatenate(pcm), np.concatenate(cpu_pcm)):
         fail(f"interactive 1080p audio: {len(pcm)} frames on the card, "
@@ -1424,7 +1622,7 @@ def phase_interactive_1080p() -> dict:
            "bytes": len(ps), "frames": 32, "pictures": pictures,
            "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
            "audio_equal_to_cpu": True, "k1_launches": launches,
-           "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
+           "k4_launches": k4_launches, "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
            "parse_share_median": med("parse_share"),
            "pack_and_enqueue_share_median": med("pack_and_enqueue_share"),
            "synthesis_share_median": med("synthesis_share"),
@@ -1579,10 +1777,13 @@ def phase_sharded_1080p() -> dict:
     against the C++ host decoder, total_px against pictures x frame_size
     in int64, K1's launches; then the displayed frames/s of the decode
     calls (the parse is done before; median of 3 after a warm-up), one
-    profiled pass and the peak device memory.  Then `make_sharded_audio_synth` on the card: 8
-    streams of test.mp2's frames (stream s from frame 4s, 320 frames),
-    each equal to the single-stream `synthesize_window` + `finalize`, and
-    stream 0 with the golden decode's last 35 frames on the golden."""
+    profiled pass and the peak device memory.  Then
+    `make_sharded_audio_synth` on the card's mesh and on the card listed
+    twice: 8 streams of test.mp2's frames (stream s from frame 4s, 320
+    frames), K4 launched once a shard (no plain filterbank op on the
+    card), each stream equal to the plain single-stream
+    `synthesize_window` + `finalize`, and stream 0 with the golden
+    decode's last 35 frames on the golden."""
     import numpy as np
     import torch
 
@@ -1650,10 +1851,24 @@ def phase_sharded_1080p() -> dict:
     n_frames = 320
     samples = np.stack([np.asarray(sub[4 * s:4 * s + n_frames], np.int32)
                         .reshape(-1, 2, 32) for s in range(SHARDED_STREAMS)])
-    mesh = sh.make_mesh()
-    u, _hist, total = sh.make_sharded_audio_synth(mesh)(
-        samples, sh.zero_audio_hist(SHARDED_STREAMS, mesh))
-    u = torch.cat(u)
+    k4_launches = {}
+    for name, devices in (("card", None), ("card_twice",
+                                           ["cuda:0", "cuda:0"])):
+        mesh = sh.make_mesh(devices)
+        cuda_kernels.reset_launches()
+        with no_plain_synthesis():
+            u, _hist, total = sh.make_sharded_audio_synth(mesh)(
+                samples, sh.zero_audio_hist(SHARDED_STREAMS, mesh))
+            torch.cuda.synchronize()
+        k4_launches[name] = cuda_kernels.synthesize.launches
+        if k4_launches[name] != len(mesh.devices):
+            fail(f"sharded synthesis ({name}): K4 launched "
+                 f"{k4_launches[name]} times for {len(mesh.devices)} shards")
+        u = torch.cat(u)
+        if name == "card":
+            u_card = u
+        elif not torch.equal(u.view(torch.int32), u_card.view(torch.int32)):
+            fail("sharded synthesis: the card twice differs from the card")
     zero = torch.zeros((15, 2, 64), dtype=torch.float32, device="cuda")
     for s in range(SHARDED_STREAMS):
         one, _ = filterbank.synthesize_window(
@@ -1670,7 +1885,8 @@ def phase_sharded_1080p() -> dict:
         fail(f"sharded synthesis stream 0: hash {_pcm_hash([pcm]):#018x}")
     out["audio"] = {"streams": SHARDED_STREAMS, "frames": n_frames,
                     "equal_to_one_stream": True, "total": int(total),
-                    "golden_with_decoder_tail": True}
+                    "golden_with_decoder_tail": True,
+                    "k4_launches": k4_launches}
     emit(out)
     return out
 
@@ -1770,6 +1986,7 @@ def main() -> int:
     phase_probe()
     phase_build()
     parity = phase_kernel_parity(args.seed)
+    k4 = phase_k4(args.seed, parity["launch_floor_ms"])
     fixture = phase_k1_fixture(args.baseline)
     phase_golden()
     e2e = phase_e2e_1080p()
@@ -1777,7 +1994,7 @@ def main() -> int:
     phase_multistream_golden()
     streams = phase_multistream_1080p()
     phase_rgba()
-    phase_audio()
+    audio = phase_audio()
     phase_interactive_golden()
     interactive = phase_interactive_1080p()
     phase_dense()
@@ -1794,35 +2011,40 @@ def main() -> int:
                           ("sharded_1080p", sharded["meshes"]["card"]))}})
     k3_decode = multi["profiled_pass"]
 
-    src, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
+    recon, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"
 
-    def row(name, replaces, launches, err, ms, plain_ms, bound_ms, **more):
+    def row(name, launches, err, ms, plain_ms, bound_ms, source=recon,
+            replaces=None, bound_by="bytes", **more):
         # library_ms: no PyTorch call computes these functions (the exact
-        # IDCT rounds between its passes; no single op does MC + compose).
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": f"{pk}:{replaces}", "launches": launches,
+        # IDCT rounds between its passes; no single op does MC + compose;
+        # K4's products in a matmul or conv would be reordered and
+        # contracted, and the golden is bit-exact).
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-                "bound_by": "bytes", "library_ms": None, **more,
+                "bound_by": bound_by, "library_ms": None, **more,
                 "timed_by": TIMED_BY}
 
+    frame, window = k4["frame"], k4["window"]
     emit({"kernels": [
         # K1: launches on the 64-stream path (the stream-batched K1); its
         # time per 1080p picture of one 64-stream launch of adversarial
         # plans (the main path's launch), the fixture's pictures in decode
         # order (the main path's inputs) beside it.
-        row("reconstruct_picture", 520,
+        row("reconstruct_picture",
             streams["launches"]["reconstruct_picture"],
             parity["k1_max_abs_err"], parity["k1_streams_ms"],
             parity["k1_streams_plain_ms"], parity["k1_streams_bound_ms"],
-            fixture_ms=fixture["k1_ms"],
+            replaces=f"{pk}:520", fixture_ms=fixture["k1_ms"],
             fixture_plain_ms=fixture["k1_plain_ms"],
             fixture_bound_ms=fixture["bound_ms"],
             interactive_launches=interactive["k1_launches"],
             sharded_launches=sharded["meshes"]["card"]["k1_launches"]),
-        row("idct_batch", 93, multi["launches"]["idct_batch"],
+        row("idct_batch", multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
-            parity["k2_plain_ms"], parity["k2_bound_ms"]),
+            parity["k2_plain_ms"], parity["k2_bound_ms"],
+            replaces=f"{pk}:93"),
         # K3: launches (two plane launches a picture) on the K3 decode;
         # `ms` the whole path (K2 and the plane launches) on one
         # adversarial picture, `bound_ms` the function's (K1's) bound,
@@ -1830,11 +2052,11 @@ def main() -> int:
         # launches alone on a given residual; `fixture_*` the fixture's
         # pictures in decode order; `decode_planes_us` the plane
         # launches' device us a picture in the profiled K3 decode.
-        row("reconstruct_picture_multi", 246,
+        row("reconstruct_picture_multi",
             multi["launches"]["reconstruct_picture_multi"],
             parity["k3_max_abs_err"], parity["k3_ms"],
             parity["k3_plain_ms"], parity["k3_bound_ms"],
-            path_bound_ms=parity["k3_path_bound_ms"],
+            replaces=f"{pk}:246", path_bound_ms=parity["k3_path_bound_ms"],
             planes_ms=parity["k3_planes_ms"],
             planes_plain_ms=parity["k3_planes_plain_ms"],
             planes_bound_ms=parity["k3_planes_bound_ms"],
@@ -1845,6 +2067,33 @@ def main() -> int:
             fixture_path_bound_ms=fixture["k3_path_bound_ms"],
             decode_planes_us=k3_decode.get("k3_planes_us_per_picture",
                                            "not measured")),
+        # K4, the counterpart of jitted JAX programs, not of a
+        # pallas_call: launches on Audio's path (once a frame); `ms` a
+        # frame's launch (the ring form, f32 out), `window_*` a 32-frame
+        # window's (f32, BatchAudioDecoder's); `plain_graph_ms` the plain
+        # version's card time by graph replay; `launch_floor_ms` the
+        # floor of `queued_ms` (K2 on one CTA), which the bound is below.
+        row("synthesize", audio["k4_launches"], k4["max_abs_err"],
+            frame["ms"], frame["plain_ms"], frame["bound_ms"],
+            source="mpeg_tpu_torch/csrc/synth.cu",
+            replaces="mpeg_tpu/ops/filterbank.py:475",
+            bound_by=frame["bound_by"],
+            also_replaces=["mpeg_tpu/ops/filterbank.py:575",
+                           "mpeg_tpu/ops/filterbank.py:442",
+                           "mpeg_tpu/ops/filterbank.py:423"],
+            plain_graph_ms=frame["plain_graph_ms"],
+            window_ms=window["ms"], window_plain_ms=window["plain_ms"],
+            window_plain_graph_ms=window["plain_graph_ms"],
+            window_bound_ms=window["bound_ms"],
+            window_s16_ms=k4["window_s16"]["ms"],
+            sharded_8_ms=k4["sharded_8"]["ms"],
+            sharded_8_plain_graph_ms=k4["sharded_8"]["plain_graph_ms"],
+            launch_floor_ms=k4["launch_floor_ms"],
+            batch_launches=audio["batch_k4_launches"],
+            interactive_launches=interactive["k4_launches"],
+            sharded_launches=sharded["audio"]["k4_launches"]["card"],
+            library_note="none: no single PyTorch call computes the "
+            "synthesis bit-exactly (a matmul reorders and contracts)"),
     ]})
     smi = gpu_name_and_power_limit()
     if not smi:

@@ -15,10 +15,12 @@ parsers (`video`, `audio`, `buffer`, `demux`, `tables`), the PS plumbing
   the picture reconstructs (the CPU path and the reference the kernels
   are held against);
 - `ops.cuda_kernels`: wrappers around the hand-written CUDA kernels in
-  `csrc/recon.cu` (built with nvcc on first use, see `ops._build`);
+  `csrc/recon.cu` (K1-K3) and `csrc/synth.cu` (K4, the MP2 synthesis),
+  each built with nvcc into a library of its own on first use (see
+  `ops._build`);
 - `ops.color`: YCbCr -> RGBA;
-- `ops.filterbank`: the MP2 synthesis filterbank in plain torch ops,
-  bit-exact (no FMA; see its docstring);
+- `ops.filterbank`: the plain version of K4, the MP2 synthesis
+  filterbank in plain torch ops, bit-exact (no FMA; see its docstring);
 - `parallel.batch`: the window-blob densify, the per-window decode module
   and `BatchVideoDecoder`;
 - `parallel.multistream`: the lockstep many-stream decode module and

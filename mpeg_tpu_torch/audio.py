@@ -6,10 +6,11 @@ Port of `mpeg_tpu/audio.py`:
   header, bit allocation, scale factors, grouped/direct sample reads and
   the fixed-point dequantization post-multiply, emitting one dense int32
   array [36, 2, 32] of subband samples per frame;
-- synthesis (`ops/filterbank.py`): matrixing DCT + 512-tap windowed MAC
-  over the V ring, one `synthesize_frame` per frame on `device`, then the
-  normalization and interleave there too; `Samples.interleaved` comes
-  back as a host float32 array, as in the reference API.
+- synthesis: matrixing DCT + 512-tap windowed MAC over the V ring, the
+  normalization and the interleave, one K4 launch a frame on a CUDA
+  `device` (`ops.cuda_kernels.synthesize_ring`; the plain version
+  `ops/filterbank.py` on the CPU); `Samples.interleaved` comes back as a
+  host float32 array, as in the reference API.
 
 Output is bit-exact float32 against the reference decoder (no-FMA regime,
 golden hash 0xf1b76cdf8e6cdea5).
@@ -25,7 +26,7 @@ import torch
 from . import tables as T
 from .buffer import Buffer
 from .device import resolve_device
-from .ops import filterbank
+from .ops import cuda_kernels
 from .video import _check_backend
 
 SAMPLES_PER_FRAME = T.SAMPLES_PER_FRAME
@@ -280,10 +281,13 @@ class Audio:
         return self.samples
 
     def _synthesize(self, samples_int: np.ndarray) -> None:
+        # One h2d copy, one K4 launch (the new ring is a new tensor), one
+        # d2h copy of the normalized PCM.
         x = torch.from_numpy(samples_int).to(self.device)
-        u, self._v, self.v_pos = filterbank.synthesize_frame(
-            x, self._v, self.v_pos)
-        self.samples.interleaved = filterbank.finalize(u).cpu().numpy()
+        pcm, ring, self.v_pos = cuda_kernels.synthesize_ring(
+            x[None], self._v[None], self.v_pos, out="f32")
+        self._v = ring[0]
+        self.samples.interleaved = pcm[0].cpu().numpy()
 
     # -- host parse (parity: audio.go:184-490) -------------------------------
 

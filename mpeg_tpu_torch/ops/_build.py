@@ -1,10 +1,15 @@
-"""Build and load the hand-written CUDA kernels (csrc/recon.cu).
+"""Build and load the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu).
 
-nvcc compiles the source into a shared library with a plain C interface,
-loaded with ctypes — seconds per build, where a source that includes
-PyTorch's headers takes minutes.  The build runs at first use, keyed by a
-digest of the source and the flags, into `build/mpeg_tpu_torch/` at the
+nvcc compiles each source into a shared library of its own with a plain C
+interface, loaded with ctypes — seconds per build, where a source that
+includes PyTorch's headers takes minutes.  A build runs at first use, keyed
+by a digest of the source and its flags, into `build/mpeg_tpu_torch/` at the
 root of the checkout (as mpeg_tpu/native.py builds the C++ parser).
+
+`LIBRARIES` names each library's source, flags and binder: K4
+(synth.cu) is bit-exact float32 only without FMA contraction and with the
+IEEE quotient, so it adds `-fmad=false`, `-prec-div=true` and
+`-ftz=false` (and never `--use_fast_math`).
 """
 
 from __future__ import annotations
@@ -15,14 +20,13 @@ import os
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "recon.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mpeg_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_lib = None
+_libs: dict = {}
 
 
 def nvcc_path() -> str | None:
@@ -36,9 +40,15 @@ def nvcc_path() -> str | None:
     return nvcc if os.path.exists(nvcc) else None
 
 
-def build(source: str = SOURCE) -> tuple[str, str]:
-    """Compile `source` (recon.cu, or an earlier commit's copy of it to
-    time against) if its digest has no library yet.
+def nvcc_flags(name: str) -> list:
+    """The flags library `name` of `LIBRARIES` is built with."""
+    return LIBRARIES[name][1]
+
+
+def build(source: str, flags: list) -> tuple[str, str]:
+    """Compile `source` (one of `LIBRARIES`' sources, or an earlier
+    commit's copy of recon.cu to time against) with `flags` if its digest
+    has no library yet.
 
     Returns (library path, the compiler's log: the -Xptxas -v register
     and shared-memory lines)."""
@@ -48,14 +58,14 @@ def build(source: str = SOURCE) -> tuple[str, str]:
                            "built (CUDA tensors need them)")
     with open(source, "rb") as f:
         src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(source))[0]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"librecon-{digest}.so")
+    so = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
     log = so + ".log"
     if not os.path.exists(so):
         tmp = so + f".tmp{os.getpid()}"
-        out = subprocess.run([nvcc, *NVCC_FLAGS, source, "-o", tmp],
+        out = subprocess.run([nvcc, *flags, source, "-o", tmp],
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
@@ -67,16 +77,27 @@ def build(source: str = SOURCE) -> tuple[str, str]:
         return so, f.read()
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use."""
-    global _lib
-    if _lib is None:
-        _lib = bind(build()[0])
-    return _lib
+def build_library(name: str) -> tuple[str, str]:
+    """`build` of library `name` of `LIBRARIES` with its flags."""
+    source, flags, _ = LIBRARIES[name]
+    return build(source, flags)
+
+
+def load(name: str = "recon") -> ctypes.CDLL:
+    """Library `name` of `LIBRARIES`, built on first use."""
+    if name not in _libs:
+        _libs[name] = LIBRARIES[name][2](build_library(name)[0])
+    return _libs[name]
+
+
+def _bind_error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.mt_error_string.argtypes = [ctypes.c_int]
+    lib.mt_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def bind(so: str) -> ctypes.CDLL:
-    """A built library with its entry points' argument types set."""
+    """A built recon.cu library with its entry points' argument types set."""
     lib = ctypes.CDLL(so)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.mt_idct_batch.argtypes = [p, p, p, i64, p]
@@ -86,13 +107,31 @@ def bind(so: str) -> ctypes.CDLL:
     lib.mt_reconstruct_pictures.restype = i32
     lib.mt_reconstruct_plane.argtypes = [p] * 10 + [i32, i32, i32, p]
     lib.mt_reconstruct_plane.restype = i32
-    lib.mt_error_string.argtypes = [i32]
-    lib.mt_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind_error_string(lib)
 
 
-def check(code: int, what: str) -> None:
-    """Raise when a launch returned a nonzero cudaGetLastError code."""
+def bind_synth(so: str) -> ctypes.CDLL:
+    """A built synth.cu library (K4) with its entry point's argument types
+    set."""
+    lib = ctypes.CDLL(so)
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mt_synthesize.argtypes = [p, p, p, i32, p, i32, i32, i32, p, p, p]
+    lib.mt_synthesize.restype = i32
+    return _bind_error_string(lib)
+
+
+# name -> (source, nvcc flags, binder)
+LIBRARIES = {
+    "recon": (os.path.join(_PKG, "csrc", "recon.cu"), NVCC_FLAGS, bind),
+    "synth": (os.path.join(_PKG, "csrc", "synth.cu"),
+              NVCC_FLAGS + ["-fmad=false", "-prec-div=true", "-ftz=false"],
+              bind_synth),
+}
+
+
+def check(code: int, what: str, name: str = "recon") -> None:
+    """Raise when a launch of library `name` returned a nonzero
+    cudaGetLastError code."""
     if code != 0:
-        msg = load().mt_error_string(code).decode()
+        msg = load(name).mt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA kernels (csrc/recon.cu).
+"""Wrappers of the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu).
 
 Port of `mpeg_tpu/ops/pallas_kernels.py`.  Each wrapper takes the plain
 PyTorch version (`video_recon`) for tensors on the CPU; for CUDA tensors it
@@ -27,18 +27,34 @@ a run can show that its main path went through the kernel.
   refuses frames and residual that do not start 16-byte aligned, and
   block counts and intra flags that do not start 8-byte aligned.
   `reconstruct_bound(..., separate_idct=True)` gives the K3 path's floor.
+- `synthesize` (K4, csrc/synth.cu, a library of its own): the MP2
+  synthesis filterbank of S streams in one launch, from the last 15 DCT
+  blocks (`hist`), with the raw window outputs, the normalized f32 or the
+  S16 PCM out.  `synthesize_ring` launches it from a V ring and its
+  position (`Audio`'s state).  Replaces the jitted JAX programs
+  `make_synthesize_frame_jax`, `make_synthesize_parallel_jax`, its S16
+  form and `make_finalize_jax` (none is a `pallas_call`), bit-exact with
+  the plain version (`filterbank`); both count in `synthesize.launches`.
+  Unlike the wrappers above, these check their inputs before taking the
+  plain version, so a CPU call refuses what a CUDA call refuses.
+  `synth_bound` gives the least bytes, operations and time of a call.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from . import video_recon
+from . import filterbank, video_recon
+from ..tables import D_WINDOW
 from .video_recon import FrameGeometry
 
 _TABLE_COLS = 5         # cur, fwd, bwd, out slot; picture index
 _MAX_STREAMS = 65535
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
 
 def _check(name, t, dtype, shape, device):
@@ -287,8 +303,153 @@ def reconstruct_planes(cur_flat, fwd_flat, bwd_flat, res, nblocks,
 reconstruct_picture_multi.launches = 0
 
 
+# K4's output forms, as csrc/synth.cu numbers them.
+_SYNTH_FORMS = {"u": 0, "f32": 1, "s16": 2}
+_DCT_FLOPS = 304        # dct32: 257 butterfly ops, 47 sign multiplies
+
+
+@functools.lru_cache(maxsize=None)
+def _synth_tables(device: torch.device) -> torch.Tensor:
+    """K4's constants on `device`: float32 [31 + 1024], the butterfly's
+    then the D window, the very values of the plain version."""
+    return torch.from_numpy(np.concatenate(
+        [filterbank._C, D_WINDOW]).astype(np.float32)).to(device)
+
+
+def _check_synth(samples, state, name, shape, out):
+    """Samples int32 [S, T, 2, 32] and the state [S, *shape] on one
+    device; returns (S, T)."""
+    if samples.dim() != 4:
+        raise ValueError(f"samples: expected [S, T, 2, 32], got "
+                         f"{tuple(samples.shape)}")
+    _device_kind(samples)
+    s_n, steps = samples.shape[:2]
+    _check_int32("samples", samples, (s_n, steps, 2, 32), samples.device)
+    _check(name, state, torch.float32, (s_n, *shape), samples.device)
+    if out not in _SYNTH_FORMS:
+        raise ValueError(f"out: one of {sorted(_SYNTH_FORMS)}, got {out!r}")
+    if s_n > _MAX_STREAMS:
+        raise ValueError(f"samples: at most {_MAX_STREAMS} streams, got "
+                         f"{s_n}")
+    return s_n, steps
+
+
+def _plain_form(u: torch.Tensor, out: str) -> torch.Tensor:
+    if out == "f32":
+        return filterbank.finalize(u)
+    return filterbank.s16_from_u(u) if out == "s16" else u
+
+
+def _synth_outputs(samples, state, out: str):
+    """New (output, state) tensors of a K4 call, uninitialized."""
+    s_n, steps = samples.shape[:2]
+    return (torch.empty((s_n, steps, 2, 32) if out == "u" else
+                        (s_n, steps * 64),
+                        dtype=torch.int16 if out == "s16" else torch.float32,
+                        device=samples.device),
+            torch.empty_like(state))
+
+
+def _launch_synth(samples, hist, ring, v_pos: int, out: str):
+    """One K4 launch into new tensors: (output, new hist or ring)."""
+    from . import _build
+
+    dev = samples.device
+    s_n, steps = samples.shape[:2]
+    pcm, state = _synth_outputs(samples, hist if ring is None else ring, out)
+    if s_n == 0:
+        return pcm, state
+    lib = _build.load("synth")
+    with torch.cuda.device(dev):
+        code = lib.mt_synthesize(
+            samples.data_ptr(), None if hist is None else hist.data_ptr(),
+            None if ring is None else ring.data_ptr(), v_pos,
+            _synth_tables(dev).data_ptr(), s_n, steps, _SYNTH_FORMS[out],
+            pcm.data_ptr(), state.data_ptr(), _stream(dev))
+    synthesize.launches += 1
+    _build.check(code, "synthesize", "synth")
+    return pcm, state
+
+
+def synthesize(samples: torch.Tensor, hist: torch.Tensor, out: str = "u"):
+    """K4 over S streams' windows (`make_synthesize_parallel_jax` over a
+    stream axis, as the JAX package vmaps it, with the S16 form and the
+    finalize).
+
+    samples: int32 [S, T, 2, 32], T a multiple of 16 with the V write
+    position 0 on entry (4n whole frames); hist: float32 [S, 15, 2, 64],
+    each stream's previous 15 DCT blocks, newest first, on the same
+    device.  out: "u", the window outputs float32 [S, T, 2, 32]; "f32",
+    `filterbank.finalize` of them, [S, T * 64]; "s16",
+    `filterbank.s16_from_u`, int16 [S, T * 64].  Returns (output,
+    hist'); hist is not written."""
+    s_n, steps = _check_synth(samples, hist, "hist", (15, 2, 64), out)
+    if steps == 0 or steps % 16:
+        raise ValueError(f"{steps} steps: a window covers 4n whole frames")
+    if _device_kind(samples) == "cuda":
+        return _launch_synth(samples, hist, None, 0, out)
+    if s_n == 0:
+        return _synth_outputs(samples, hist, out)
+    per = [filterbank.synthesize_window(x, h) for x, h in zip(samples, hist)]
+    return (_plain_form(torch.stack([u for u, _ in per]), out),
+            torch.stack([h for _, h in per]))
+
+
+synthesize.launches = 0
+
+
+def synthesize_ring(samples: torch.Tensor, ring: torch.Tensor, v_pos: int,
+                    out: str = "f32"):
+    """K4 from V rings (`make_synthesize_frame_jax`, over a stream axis).
+
+    samples: int32 [S, T, 2, 32] with T >= 16 (36 a frame; fewer steps
+    are refused on every device: the new ring must hold only this call's
+    blocks); ring: float32 [S, 2, 1024] on the same device, whose last
+    write position is v_pos, a multiple of 64.  out as in `synthesize`.
+    Returns (output, ring', v_pos'); ring is not written.  Counts in
+    `synthesize.launches`."""
+    s_n, steps = _check_synth(samples, ring, "ring", (2, 1024), out)
+    filterbank._check_v_pos(v_pos)
+    if steps < 16:
+        raise ValueError(f"{steps} steps: the ring form takes at least 16")
+    new_pos = (v_pos - 64 * steps) & 1023
+    if _device_kind(samples) == "cuda":
+        return _launch_synth(samples, None, ring, v_pos, out) + (new_pos,)
+    if s_n == 0:
+        return _synth_outputs(samples, ring, out) + (new_pos,)
+    per = [filterbank.synthesize_frame(x, v, v_pos)
+           for x, v in zip(samples, ring)]
+    return (_plain_form(torch.stack([u for u, _, _ in per]), out),
+            torch.stack([v for _, v, _ in per]), new_pos)
+
+
+def synth_bound(s_n: int, steps: int, out: str = "u",
+                ring: bool = False) -> dict:
+    """The least work of one K4 call over S streams of T steps, each input
+    byte read once and each output byte written once: the samples (256 B
+    a step) and the 15 previous DCT blocks (7,680 B a stream, from the
+    ring or the hist) in; the output (256 B a step, 128 as s16) and the
+    new state (a ring of 8 KiB or a hist of 7,680 B a stream) out.  The
+    butterfly and window constants are not counted: the JAX programs
+    carry them in the program.  Operations: a DCT (304 float ops) and 32
+    16-tap MACs (1,024) a step and channel, and one divide or multiply an
+    output sample.  Returns {"bytes", "flops", "us", "bound_by"}: "us" the
+    larger of bytes over `HBM_BYTES_PER_S` and operations over
+    `F32_FLOPS_PER_S`."""
+    hist = 15 * 2 * 64 * 4
+    nbytes = s_n * (steps * (256 + (128 if out == "s16" else 256))
+                    + hist + (2 * 1024 * 4 if ring else hist))
+    flops = s_n * steps * (2 * (_DCT_FLOPS + 32 * 32)
+                           + (0 if out == "u" else 64))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    by_ops = flops / F32_FLOPS_PER_S * 1e6
+    return {"bytes": nbytes, "flops": flops, "us": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     idct_batch.launches = 0
     reconstruct_picture.launches = 0
     reconstruct_picture_multi.launches = 0
+    synthesize.launches = 0

@@ -4,7 +4,11 @@ D-window MAC.
 Port of `mpeg_tpu/ops/filterbank.py`.  The host parser emits the
 dequantized subband samples as int32 [36, 2, 32] per MP2 frame (36
 sub-block steps x 2 channels x 32 subbands); this module turns them into
-1152 stereo PCM samples, on whatever device its inputs are on.
+1152 stereo PCM samples, on whatever device its inputs are on.  It is
+the plain version of K4 (`csrc/synth.cu`, through
+`cuda_kernels.synthesize` and `synthesize_ring`): the decoders call those
+wrappers, which run this module for CPU tensors only; on the card it is
+what K4 is held against.
 
 Numeric contract: bit-exact float32 against the reference's scalar Go
 code (audio.go:377-424,492-772) in the no-FMA regime.  Every multiply and

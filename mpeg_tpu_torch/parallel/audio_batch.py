@@ -2,11 +2,11 @@
 
 Port of `mpeg_tpu/parallel/audio_batch.py`.  The host parse (native C++
 when available) emits subband sample tensors; the device runs one window
-synthesis (`ops.filterbank.synthesize_window`: every DCT of the window at
-once, then the gathered windowed MAC) per window, carrying the last 15
-DCT blocks.  The normalization divides on the device with the exact IEEE
-quotient (`filterbank.finalize`); `out_format="s16"` quantizes there with
-the integer constant-divisor kernel (`filterbank.s16_from_u`).
+synthesis per window (`ops.cuda_kernels.synthesize`: one K4 launch on a
+CUDA device, the plain `ops.filterbank` version on the CPU), carrying the
+last 15 DCT blocks.  The same launch normalizes with the exact IEEE
+quotient (`out_format="f32"`) or quantizes to S16 with the integer
+constant-divisor form (`"s16"`, `filterbank.s16_from_u`).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import filterbank
+from ..ops import cuda_kernels
 
 
 def _sync(device: torch.device) -> None:
@@ -297,7 +297,7 @@ class BatchAudioDecoder:
             frames, self._pending = self._pending, []
 
         if self._hist is None:   # the last 15 DCT blocks, newest first
-            self._hist = torch.zeros((15, 2, 64), dtype=torch.float32,
+            self._hist = torch.zeros((1, 15, 2, 64), dtype=torch.float32,
                                      device=self.device)
 
         n = len(frames)
@@ -307,20 +307,16 @@ class BatchAudioDecoder:
         # with explicit syncs (attribution mode).
         detailed = self.stats is not None and self.stats.detailed
         t0 = time.perf_counter()
-        xs = torch.from_numpy(samples.reshape(-1, 2, 32)).to(self.device)
+        xs = torch.from_numpy(samples.reshape(1, -1, 2, 32)).to(self.device)
         if detailed:
             _sync(self.device)
             t1 = time.perf_counter()
             self.stats.h2d_seconds += t1 - t0
-        if self.out_format == "s16":
-            # Quantized + interleaved on the device; d2h is int16.
-            out, self._hist = filterbank.synthesize_window_s16(xs,
-                                                               self._hist)
-            pcm = out[:n * 2304]
-        else:
-            u, self._hist = filterbank.synthesize_window(xs, self._hist)
-            pcm = filterbank.finalize(
-                u.view(self.window, 36, 2, 32)[:n]).reshape(-1)
+        # Normalized (or quantized: the d2h is then int16) and interleaved
+        # on the device; the window's first n frames.
+        out, self._hist = cuda_kernels.synthesize(xs, self._hist,
+                                                  out=self.out_format)
+        pcm = out[0, :n * 2304]
         if detailed:
             _sync(self.device)
             t2 = time.perf_counter()

@@ -17,7 +17,7 @@ history are lists with one tensor a shard, and `torch.cat` of a list
 Transports mirror `parallel.batch`: window-pool blobs, one a stream
 (`make_sharded_blob_decoder`), and stacked dense plans
 (`make_sharded_scan_decoder`, the readable oracle).  Audio shards the
-same way (`make_sharded_audio_synth`).
+same way (`make_sharded_audio_synth`, one K4 launch a shard).
 
 Every shard's work is enqueued before any result is waited on, so that
 shards on several cards overlap.  The host-to-device copies come from
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import explicit_device
-from ..ops.filterbank import synthesize_window
+from ..ops.cuda_kernels import synthesize
 from ..ops.video_recon import FrameGeometry
 from .batch import (
     _PLAN_FIELDS, DenseWindowDecoder, blob_layout, blob_split,
@@ -253,9 +253,10 @@ def make_sharded_audio_synth(mesh: Mesh):
     `hist'` lists with one tensor a shard (f32 [S_d, 15, 2, 64] and
     [S_d, T, 2, 32]); `total` the int64 count of output samples a channel
     over every stream, summed over the process group.  Each shard runs
-    `synthesize_window` on each of its streams, in eager torch ops.
-    Normalization stays with `filterbank.finalize`, which divides by a
-    tensor on u's device (the exact IEEE quotient)."""
+    one K4 launch over its streams (`cuda_kernels.synthesize`; on the CPU
+    the plain `filterbank.synthesize_window` a stream).  Normalization
+    stays with `filterbank.finalize`, which divides by a tensor on u's
+    device (the exact IEEE quotient)."""
 
     def synth(samples, hist):
         samples = torch.as_tensor(np.asarray(samples, np.int32))
@@ -265,11 +266,10 @@ def make_sharded_audio_synth(mesh: Mesh):
         layout = mesh.split(samples.shape[0])
         dev_samples = [samples[a:b].to(d) for d, a, b in layout]
         us, hists = [], []
-        for i, (d, a, b) in enumerate(layout):
-            per_stream = [synthesize_window(dev_samples[i][s], hist[i][s])
-                          for s in range(b - a)]
-            us.append(torch.stack([u for u, _ in per_stream]))
-            hists.append(torch.stack([h for _, h in per_stream]))
+        for x, h in zip(dev_samples, hist):
+            u, h = synthesize(x, h)
+            us.append(u)
+            hists.append(h)
         n = samples.shape[0] * samples.shape[1] * 32
         return us, hists, _reduce_count(n, mesh)
 
