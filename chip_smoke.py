@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`mpeg_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
+                          [--synth-baseline SYNTH_CU]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
 (recon.cu and synth.cu, each its own library, and the C++ host parser
@@ -11,9 +12,10 @@ picture and 64 streams in one launch; K2; K3, the whole path and its two
 plane launches alone; K1 and K3 on the 1080p fixture's 32 pictures in
 decode order), each timed beside its byte bound, and K4, the MP2
 synthesis, bit for bit in every form (`k4`: the ring form from all 16 V
-positions, a 32-frame window as f32, s16 and raw outputs, 8 streams in
-one launch), timed per frame and per window in turns with its plain
-version beside its bound and the launch floor; then drives every path
+positions and at ragged step counts, 32-frame and ragged windows as f32,
+s16 and raw outputs, 8 streams in one launch), timed per frame and per
+window in turns with its plain version beside its bound and the launch
+floor; then drives every path
 of the port and checks its output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
@@ -54,6 +56,11 @@ copy of `recon.cu` (an earlier commit's, or an edited copy with another
 ring depth, CTAs a SM or consumer mapping) and times them and this K1
 and K3 in turns (baseline, this, this, baseline) on the fixture's
 pictures, the adversarial plan and (K1) 64-stream launches.
+`--synth-baseline` (which may be repeated) likewise builds K4 from
+another copy of `synth.cu` with K4's flags, holds its outputs and states
+equal to this K4's on ragged calls and on the timed inputs, and times the
+two in turns (baseline, this, this, baseline, twice) a frame, a window
+(f32 and s16) and 8 streams' windows.
 
 Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
 plain version's `plain_ms` is the wall of back-to-back calls by CUDA
@@ -183,6 +190,17 @@ def graph_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_floor_ms() -> float:
+    """The floor of `queued_ms`: K2 on 32 zero blocks, one CTA."""
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels
+
+    c1, n1 = (torch.zeros(s, dtype=torch.int32, device="cuda")
+              for s in ((32, 64), (32,)))
+    return queued_ms(lambda: cuda_kernels.idct_batch(c1, n1), 200)
 
 
 def phase_probe() -> dict:
@@ -361,11 +379,7 @@ def phase_kernel_parity(seed: int) -> dict:
     for name, (fn, iters, per) in fns.items():
         timer = cuda_ms if name.endswith("_plain") else queued_ms
         t[f"{name}_ms"] = timer(fn, iters) / per
-    # The floor of this timing: K2 on 32 zero blocks, one CTA.
-    c1, n1 = (torch.zeros(s, dtype=torch.int32, device=dev)
-              for s in ((32, 64), (32,)))
-    t["launch_floor_ms"] = queued_ms(lambda: cuda_kernels.idct_batch(c1, n1),
-                                     200)
+    t["launch_floor_ms"] = launch_floor_ms()
     # Bounds from these inputs (each input byte read once, each output
     # byte written once, at 3.35 TB/s): K1 and K3 compute one function,
     # and K3's plane launches move K1's bytes; K3's path adds K2's.
@@ -404,19 +418,29 @@ def _subbands(rng, streams: int, steps: int, edge: bool = False):
     return s.astype(np.int32)
 
 
-def phase_k4(seed: int, launch_floor_ms: float) -> dict:
+def phase_k4(seed: int, launch_floor_ms: float, baselines=(),
+             variants=()) -> dict:
     """K4 against its plain version (`ops.filterbank` on the same CUDA
     tensors), bit for bit: the ring form (`synthesize_ring`, Audio's
-    launch) from all 16 V positions on one frame; a 32-frame window
-    (`synthesize`, BatchAudioDecoder's launch) and 8 streams in one
-    launch (the sharded synthesis'), on random and edge samples; each in
-    the u, f32 and s16 forms, with the new ring or history.  Then timed
-    in turns (plain, K4, K4, plain, twice) per frame (ring, f32), per
-    window (f32 and s16) and per 8-stream window (u): K4 by `queued_ms`,
-    the plain version by `graph_ms` (card) and `cuda_ms` (wall), beside
-    K4's bound (`cuda_kernels.synth_bound`) and the launch floor (K2 on
-    one CTA, `kernel_parity`).  Also the plain version's launches a call
-    (`count_launches`: its aten ops; K4 is one launch)."""
+    launch) from all 16 V positions on one frame, and at 16, 17, 36 and
+    53 steps from four positions; a 32-frame window (`synthesize`,
+    BatchAudioDecoder's launch) and 8 streams in one launch (the sharded
+    synthesis'), on random and edge samples, and windows of 48 and 1,168
+    steps; each in the u, f32 and s16 forms, with the new ring or
+    history.  Then timed in turns (plain, K4, K4, plain, twice) per frame
+    (ring, f32), per window (f32 and s16) and per 8-stream window (u): K4
+    by `queued_ms`, the plain version by `graph_ms` (card) and `cuda_ms`
+    (wall), beside K4's bound (`cuda_kernels.synth_bound`) and the launch
+    floor (K2 on one CTA), and K4's microseconds above that floor.  Also
+    the plain version's launches a call (`count_launches`: its aten ops;
+    K4 is one launch).
+
+    Each source of `baselines` (another synth.cu, e.g. an earlier
+    commit's) is built with K4's flags, held equal to this K4 on the
+    ragged and the timed inputs, and timed in turns with it (baseline,
+    this, this, baseline, twice) on the four timed inputs (`turns`);
+    each source of `variants` (a copy that computes only part of K4) is
+    timed so without the check (`variant_turns`)."""
     import numpy as np
     import torch
 
@@ -437,47 +461,75 @@ def phase_k4(seed: int, launch_floor_ms: float) -> dict:
         if got.shape != want.shape or not torch.equal(got, want):
             fail(f"k4 differs from its plain version: {what}")
 
-    ck.reset_launches()
-    cases = 0
-    for v_pos in range(0, 1024, 64):
-        x = torch.from_numpy(_subbands(rng, 1, 36, v_pos % 128 == 64)).to(dev)
-        ring = torch.from_numpy((rng.standard_normal((1, 2, 1024)) * 3e4)
-                                .astype(np.float32)).to(dev)
-        u, want_ring, want_pos = filterbank.synthesize_frame(x[0], ring[0],
-                                                             v_pos)
+    def rand_ring(streams):
+        return torch.from_numpy((rng.standard_normal((streams, 2, 1024))
+                                 * 3e4).astype(np.float32)).to(dev)
+
+    def rand_hist(streams):
+        return torch.from_numpy((rng.standard_normal((streams, 15, 2, 64))
+                                 * 1e4).astype(np.float32)).to(dev)
+
+    def check_ring(x, ring, v_pos, what):
+        plain = [filterbank.synthesize_frame(x[s], ring[s], v_pos)
+                 for s in range(x.shape[0])]
+        u = torch.stack([p[0] for p in plain])
+        want_ring = torch.stack([p[1] for p in plain])
         for out in ("u", "f32", "s16"):
             got, got_ring, pos = ck.synthesize_ring(x, ring, v_pos, out=out)
-            check(got[0], form(u, out), f"ring from {v_pos}, {out}")
-            check(got_ring[0], want_ring, f"ring from {v_pos}: the ring")
-            if pos != want_pos:
-                fail(f"k4 ring from {v_pos}: position {pos}, want {want_pos}")
-            cases += 1
-    for streams, edge in ((1, False), (1, True), (8, False), (8, True)):
-        x = torch.from_numpy(_subbands(rng, streams, 32 * 36, edge)).to(dev)
-        hist = torch.from_numpy((rng.standard_normal((streams, 15, 2, 64))
-                                 * 1e4).astype(np.float32)).to(dev)
+            check(got, form(u, out), f"{what}, {out}")
+            check(got_ring, want_ring, f"{what}: the ring")
+            if pos != plain[0][2]:
+                fail(f"k4 {what}: position {pos}, want {plain[0][2]}")
+
+    def check_window(x, hist, what):
         plain = [filterbank.synthesize_window(x[s], hist[s])
-                 for s in range(streams)]
+                 for s in range(x.shape[0])]
         u = torch.stack([p[0] for p in plain])
         want_hist = torch.stack([p[1] for p in plain])
         for out in ("u", "f32", "s16"):
             got, got_hist = ck.synthesize(x, hist, out=out)
-            what = f"{streams} streams, edge={edge}, {out}"
-            check(got, form(u, out), what)
+            check(got, form(u, out), f"{what}, {out}")
             check(got_hist, want_hist, f"{what}: the history")
-            cases += 1
+        return u, want_hist
+
+    ck.reset_launches()
+    cases = 0
+    for v_pos in range(0, 1024, 64):
+        x = torch.from_numpy(_subbands(rng, 1, 36, v_pos % 128 == 64)).to(dev)
+        check_ring(x, rand_ring(1), v_pos, f"ring from {v_pos}")
+        cases += 3
+    # Ragged ring calls: chunks and CTAs that end inside a ring period.
+    for steps in (16, 17, 36, 53):
+        for v_pos in (0, 64, 448, 960):
+            x = torch.from_numpy(_subbands(rng, 2, steps, steps == 17)) \
+                .to(dev)
+            check_ring(x, rand_ring(2), v_pos,
+                       f"ring of {steps} steps from {v_pos}")
+            cases += 3
+    for streams, edge in ((1, False), (1, True), (8, False), (8, True)):
+        x = torch.from_numpy(_subbands(rng, streams, 32 * 36, edge)).to(dev)
+        hist = rand_hist(streams)
+        what = f"{streams} streams, edge={edge}"
+        u, want_hist = check_window(x, hist, what)
+        cases += 3
         # Two windows, the history carried, equal one window of both.
         half = x.shape[1] // 2
         first, h1 = ck.synthesize(x[:, :half].contiguous(), hist)
         second, h2 = ck.synthesize(x[:, half:].contiguous(), h1)
-        check(torch.cat([first, second], 1), u, f"{streams} streams, "
-              "two windows")
-        check(h2, want_hist, f"{streams} streams, two windows: history")
+        check(torch.cat([first, second], 1), u, f"{what}, two windows")
+        check(h2, want_hist, f"{what}, two windows: history")
         cases += 2
+    for streams in (1, 8):           # ragged windows: 3 and 73 ring periods
+        for steps in (48, 1168):
+            x = torch.from_numpy(_subbands(rng, streams, steps)).to(dev)
+            check_window(x, rand_hist(streams),
+                         f"{streams} streams of {steps} steps")
+            cases += 3
     if ck.synthesize.launches != cases:
         fail(f"k4 launched {ck.synthesize.launches} times for {cases} calls")
 
-    # Timing, at the paths' shapes.
+    # Timing, at the paths' shapes: name -> (samples, hist, ring, out,
+    # K4 iterations, plain iterations, plain version).
     x1 = torch.from_numpy(_subbands(rng, 1, 32 * 36)).to(dev)
     x8 = torch.from_numpy(_subbands(rng, 8, 32 * 36)).to(dev)
     h1 = torch.zeros((1, 15, 2, 64), dtype=torch.float32, device=dev)
@@ -485,26 +537,28 @@ def phase_k4(seed: int, launch_floor_ms: float) -> dict:
     ring = torch.zeros((1, 2, 1024), dtype=torch.float32, device=dev)
     frame = x1[:, :36].contiguous()
     timed = {
-        "frame": (lambda: ck.synthesize_ring(frame, ring, 0, out="f32"),
+        "frame": (frame, None, ring, "f32", 200, 50,
                   lambda: filterbank.finalize(filterbank.synthesize_frame(
-                      frame[0], ring[0], 0)[0]), 200, 50, (1, 36, "f32", True)),
-        "window": (lambda: ck.synthesize(x1, h1, out="f32"),
+                      frame[0], ring[0], 0)[0])),
+        "window": (x1, h1, None, "f32", 200, 20,
                    lambda: filterbank.finalize(filterbank.synthesize_window(
-                       x1[0], h1[0])[0]), 200, 20, (1, 1152, "f32", False)),
-        "window_s16": (lambda: ck.synthesize(x1, h1, out="s16"),
-                       lambda: filterbank.synthesize_window_s16(x1[0], h1[0]),
-                       200, 20, (1, 1152, "s16", False)),
-        "sharded_8": (lambda: ck.synthesize(x8, h8, out="u"),
+                       x1[0], h1[0])[0])),
+        "window_s16": (x1, h1, None, "s16", 200, 20,
+                       lambda: filterbank.synthesize_window_s16(x1[0],
+                                                                h1[0])),
+        "sharded_8": (x8, h8, None, "u", 200, 5,
                       lambda: [filterbank.synthesize_window(x8[s], h8[s])
-                               for s in range(8)], 200, 5,
-                      (8, 1152, "u", False)),
+                               for s in range(8)]),
     }
-    out = {"phase": "k4", "equal": True, "calls_checked": ck.synthesize
-           .launches, "max_abs_err": err, "launch_floor_ms": launch_floor_ms,
+
+    res = {"phase": "k4", "equal": True, "calls_checked": cases,
+           "max_abs_err": err, "launch_floor_ms": launch_floor_ms,
            "unit": "ms a call", "timed_by": {
                "ms": "cuda_events_queued", "plain_graph_ms":
                "cuda_events_graph_replay", "plain_ms": "cuda_events_wall"}}
-    for name, (k4, plain, k_iters, p_iters, shape) in timed.items():
+    for name, (x, hist, ring_, out, k_iters, p_iters, plain) in \
+            timed.items():
+        k4 = lambda: _k4(x, hist, ring_, out)  # noqa: E731
         got = {"ms": [], "plain_graph_ms": []}
         for _ in range(2):
             for who in ("plain", "k4", "k4", "plain"):
@@ -512,18 +566,109 @@ def phase_k4(seed: int, launch_floor_ms: float) -> dict:
                     got["ms"].append(queued_ms(k4, k_iters))
                 else:
                     got["plain_graph_ms"].append(graph_ms(plain, p_iters))
-        bound = ck.synth_bound(*shape[:3], ring=shape[3])
-        out[name] = {
-            "streams": shape[0], "steps": shape[1], "out": shape[2],
-            "ms": statistics.median(got["ms"]), "all_ms": got["ms"],
+        bound = ck.synth_bound(x.shape[0], x.shape[1], out,
+                               ring=ring_ is not None)
+        ms = statistics.median(got["ms"])
+        res[name] = {
+            "streams": x.shape[0], "steps": x.shape[1], "out": out,
+            "ms": ms, "all_ms": got["ms"],
+            "above_floor_us": (ms - launch_floor_ms) * 1e3,
             "plain_graph_ms": statistics.median(got["plain_graph_ms"]),
             "all_plain_graph_ms": got["plain_graph_ms"],
             "plain_ms": cuda_ms(plain, p_iters),
             "plain_launches": count_launches(plain),
             "bound_ms": bound["us"] / 1e3, "bound_by": bound["bound_by"],
             "bound_bytes": bound["bytes"], "bound_flops": bound["flops"]}
-    emit(out)
-    return out
+    inputs = {name: v[:4] for name, v in timed.items()}
+    if baselines:
+        res["turns"] = {src: _synth_turns(src, inputs, True,
+                                          launch_floor_ms)
+                        for src in baselines}
+    if variants:
+        res["variant_turns"] = {src: _synth_turns(src, inputs, False,
+                                                  launch_floor_ms)
+                                for src in variants}
+    emit(res)
+    return res
+
+
+def _k4(x, hist, ring, out: str):
+    """This K4 on one timed input: (output, new state), from the ring at
+    position 0 when `ring` is given, else from `hist`."""
+    from mpeg_tpu_torch.ops import cuda_kernels as ck
+
+    if ring is None:
+        return ck.synthesize(x, hist, out=out)
+    return ck.synthesize_ring(x, ring, 0, out=out)[:2]
+
+
+def _synth_turns(source: str, inputs: dict, check: bool,
+                 floor_ms: float) -> dict:
+    """K4 built from `source` with K4's flags ("baseline") and this K4
+    ("this") in turns baseline, this, this, baseline (twice) on each of
+    `inputs` (name -> (samples, hist, ring, out); a ring from position
+    0): card ms a call (`queued_ms`), the median of each and its
+    microseconds above `floor_ms`, the launch floor.  With
+    `check`, the baseline's outputs and states equal this K4's on these
+    inputs and on ragged ones first."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.ops import _build
+    from mpeg_tpu_torch.ops import cuda_kernels as ck
+
+    so, log = _build.build(os.path.abspath(source), _build.nvcc_flags("synth"))
+    lib = _build.bind_synth(so)
+
+    def base(x, hist, ring, out):
+        pcm, state = ck._synth_outputs(x, hist if ring is None else ring, out)
+        code = lib.mt_synthesize(
+            x.data_ptr(), None if hist is None else hist.data_ptr(),
+            None if ring is None else ring.data_ptr(), 0,
+            ck._synth_tables(x.device).data_ptr(), x.shape[0], x.shape[1],
+            ck._SYNTH_FORMS[out], pcm.data_ptr(), state.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"baseline K4 {source}: CUDA error {code}")
+        return pcm, state
+
+    if check:
+        rng = np.random.default_rng(2)
+        ragged = []
+        for steps in (16, 17, 36, 53):
+            ragged.append((torch.from_numpy(_subbands(rng, 2, steps))
+                           .cuda(), None, torch.from_numpy(
+                               rng.standard_normal((2, 2, 1024))
+                               .astype(np.float32)).cuda()))
+        for streams, steps in ((1, 48), (8, 1168)):
+            ragged.append((torch.from_numpy(_subbands(rng, streams, steps))
+                           .cuda(), torch.from_numpy(rng.standard_normal(
+                               (streams, 15, 2, 64)).astype(np.float32))
+                           .cuda(), None))
+        for x, hist, ring in ragged + [v[:3] for v in inputs.values()]:
+            for out in ("u", "f32", "s16"):
+                got, want = base(x, hist, ring, out), _k4(x, hist, ring, out)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if g.dtype == torch.float32:
+                        g, w = g.view(torch.int32), w.view(torch.int32)
+                    if not torch.equal(g, w):
+                        fail(f"baseline K4 {source} and this K4 differ: "
+                             f"{tuple(x.shape)}, {out}")
+    res = {"equal": True} if check else {}
+    for name, (x, hist, ring, out) in inputs.items():
+        got = {"baseline": [], "this": []}
+        for _ in range(2):
+            for who in ("baseline", "this", "this", "baseline"):
+                fn = base if who == "baseline" else _k4
+                got[who].append(queued_ms(
+                    lambda: fn(x, hist, ring, out), 200))
+        res[name] = {k: {"ms": statistics.median(v), "all_ms": v,
+                         "above_floor_us": (statistics.median(v)
+                                            - floor_ms) * 1e3}
+                     for k, v in got.items()}
+    res["ptxas"] = _ptxas_lines(log)
+    return res
 
 
 def _fixture_1080p() -> bytes:
@@ -1970,6 +2115,11 @@ def main() -> int:
                     help="also time K1 and K3 built from this copy of "
                          "recon.cu in turns with this K1 and K3 (may be "
                          "repeated)")
+    ap.add_argument("--synth-baseline", metavar="SYNTH_CU", action="append",
+                    default=[],
+                    help="also build K4 from this copy of synth.cu, hold "
+                         "it equal to this K4 and time the two in turns "
+                         "(may be repeated)")
     args = ap.parse_args()
 
     import torch
@@ -1986,7 +2136,7 @@ def main() -> int:
     phase_probe()
     phase_build()
     parity = phase_kernel_parity(args.seed)
-    k4 = phase_k4(args.seed, parity["launch_floor_ms"])
+    k4 = phase_k4(args.seed, parity["launch_floor_ms"], args.synth_baseline)
     fixture = phase_k1_fixture(args.baseline)
     phase_golden()
     e2e = phase_e2e_1080p()
@@ -2072,7 +2222,10 @@ def main() -> int:
         # frame's launch (the ring form, f32 out), `window_*` a 32-frame
         # window's (f32, BatchAudioDecoder's); `plain_graph_ms` the plain
         # version's card time by graph replay; `launch_floor_ms` the
-        # floor of `queued_ms` (K2 on one CTA), which the bound is below.
+        # floor of `queued_ms` (K2 on one CTA), which the bound is below,
+        # and `above_floor_us` each timed shape's microseconds above it;
+        # `baseline_turns` the ms of each `--synth-baseline` and this K4
+        # in turns.
         row("synthesize", audio["k4_launches"], k4["max_abs_err"],
             frame["ms"], frame["plain_ms"], frame["bound_ms"],
             source="mpeg_tpu_torch/csrc/synth.cu",
@@ -2089,6 +2242,13 @@ def main() -> int:
             sharded_8_ms=k4["sharded_8"]["ms"],
             sharded_8_plain_graph_ms=k4["sharded_8"]["plain_graph_ms"],
             launch_floor_ms=k4["launch_floor_ms"],
+            above_floor_us={name: k4[name]["above_floor_us"] for name in
+                            ("frame", "window", "window_s16", "sharded_8")},
+            baseline_turns={src: {name: {who: t[name][who]["ms"]
+                                         for who in ("baseline", "this")}
+                                  for name in ("frame", "window",
+                                               "window_s16", "sharded_8")}
+                            for src, t in k4.get("turns", {}).items()},
             batch_launches=audio["batch_k4_launches"],
             interactive_launches=interactive["k4_launches"],
             sharded_launches=sharded["audio"]["k4_launches"]["card"],

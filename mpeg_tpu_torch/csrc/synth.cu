@@ -29,47 +29,82 @@
 // - every float multiply, add and subtract is __fmul_rn / __fadd_rn /
 //   __fsub_rn, rounded on its own, and _build.py compiles this file with
 //   -fmad=false besides (never --use_fast_math);
-// - the DCT is the reference's butterfly statement for statement: the int32
-//   sum or difference first (wrapping), then __int2float_rn, then the
-//   constant multiply; entry 16 of a block is +0.0 and entries 17-63 are
-//   x * -1.0f, so +0.0 becomes -0.0;
-// - the windowed MAC starts from +0.0f and adds its 16 products one at a
-//   time in the order of the reference's two-pass synthWindow loop
-//   (filterbank.py window_offsets), which depends on the step's V position;
+// - the DCT is the reference's butterfly statement for statement, one thread
+//   a block: the int32 sum or difference first (wrapping), then
+//   __int2float_rn, then the constant multiply; entry 16 of a block is +0.0
+//   and entries 17-63 are x * -1.0f, so +0.0 becomes -0.0;
+// - each output is one thread's chain: the windowed MAC starts from +0.0f and
+//   adds its 16 products one at a time in the order of the reference's
+//   two-pass synthWindow loop (filterbank.py window_offsets), which depends on
+//   the step's V position; no sum is split across threads;
 // - f32 divides with __fdiv_rn (IEEE, subnormal results kept, like torch's
 //   division by a device tensor); s16 divides with the plain version's exact
 //   integer form (div_out_scale_exact), then truncates to int32 and wraps to
 //   int16.
-// The constants (the butterfly's 31 and the 1024-entry D window) come from
-// the wrapper as one float tensor, the very values the plain version uses.
+// The constants (the butterfly's 31 and the 1024-entry D window, padded to
+// 1,056 floats) come from the wrapper as one float tensor, the very values the
+// plain version uses.
 //
-// Bound and design.  A 32-frame window moves ~0.6 MB and does ~3 M float
-// ops: a fraction of a microsecond of the card, far below one launch.  So K4
-// is one simple launch a call: a grid of (chunk of 32 steps, stream) CTAs.
-// Each CTA computes the DCT blocks of its steps and of the 15 steps before
-// them into shared memory (one thread a step and channel; the first chunk
-// takes those 15 from the history, the others recompute them), then one
-// thread an output (step, lane, channel) runs the 16-tap MAC and writes the
-// output form; the CTAs whose steps are among the last 16 (or 15) write the
-// new state.
+// Bound.  A 32-frame window moves ~0.6 MB and does ~3 M float ops: 0.18 us of
+// the card's memory rate, far below one launch (an empty kernel of this
+// shape takes ~1.9 us queued), so what bounds K4 is the launch and the
+// critical path of its longest CTA, not bytes.  A simpler layout (32 steps a
+// CTA, 256 threads, one thread an output) measured on an H100 ~1.3 us of
+// prologue (strided load -> shared store loops over the constants, the
+// samples and the history, one after another), ~0.3 of DCT and ~2.8 of MAC
+// (8 serial rounds a frame's first CTA, each spending ~100 integer
+// instructions on tap addresses) above that floor; 8 streams took 288 CTAs
+// that each recomputed 15 halo blocks.
+//
+// Design.  A grid of (chunk of C steps, stream) CTAs of 512 threads, C chosen
+// on the host from the call's shape (chunk_steps): as large as one CTA a SM
+// for all streams needs, within [4, 96].  So a frame (36 steps) takes 9 CTAs
+// of 4 steps and a 32-frame window 128 CTAs of 9, each thread at most 2
+// outputs; 8 streams' windows take 128 CTAs of 72 steps, one wave, with 15
+// recomputed blocks in 87.
+// - Prologue: every global read of a CTA is a 16-byte cp.async issued before
+//   one wait (cp.async.wait_all): the 1,056 constants, its samples rows
+//   (landed at a stride of 36 ints a row and channel, so the DCT threads'
+//   16-byte reads hit 8 distinct bank quads) and, in a chunk that starts
+//   within 15 steps of the call's first, the history rows before it (a ring
+//   row is 64 contiguous floats at (v_pos + 64 k) & 1023, one aligned 256-byte
+//   run).  So the pointers must be 16-byte aligned: mt_synthesize refuses
+//   others.
+// - DCT: one thread a block and channel, all of a CTA's blocks in one round
+//   (2 (C + 15) <= 222 threads, counted from the CTA's last thread): its own
+//   steps' and the halo steps' that lie in this call, recomputed rather than
+//   shared between CTAs (a copy that skips the recompute is no faster at 8
+//   streams, so a thread-block cluster would save nothing), written as float4
+//   at a row stride of 148 floats and a channel stride of 80 (each quarter
+//   warp's 16-byte stores hit 8 distinct bank quads).
+// - MAC: warp w takes the steps w, w + 16, ... of its chunk, which share the
+//   V position's residue and so the 16 taps.  Its lanes load their 16 window
+//   coefficients and compute their tap offsets while the DCT runs (in a short
+//   chunk those warps do no DCT), then run both channels' chains of each of
+//   their steps (32 shared loads a step, conflict-free) and write the L/R pair
+//   as one 8-byte (f32) or 4-byte (s16) store.
+// - The CTAs that hold the call's last 16 (ring) or 15 (hist) blocks write
+//   them to the new state as float4.
+// Dynamic shared memory: 4 (1,056 + 220 (C + 15)) bytes, 101,904 at C = 96;
+// above 48 KB the launch raises the kernel's limit first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChunk = 32;                 // steps a CTA
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;      // 16: one V-position residue each
+constexpr int kMinChunk = 4;               // steps a CTA, at least
+constexpr int kMaxChunk = 96;              // and at most
 constexpr int kHalo = 15;                  // blocks before a step its taps read
-constexpr int kRows = kHalo + kChunk;      // DCT blocks a CTA holds
-constexpr int kThreads = 256;
-// Shared layout of a DCT row: channel 0 at 0, channel 1 at 80 (the MAC's two
-// half-warps read 16 floats of each: disjoint banks), 161 floats a row (the
-// DCT threads of one warp write 16 consecutive rows: disjoint banks).
+// Shared layout: the constants, then the DCT rows (channel 0 at 0, channel 1
+// at 80, 148 floats a row), then the samples (36 ints a row and channel).
 constexpr int kChanStride = 80;
-constexpr int kRowStride = 161;
-constexpr int kSampleStride = 33;          // ints a (row, channel) of samples
+constexpr int kRowStride = 148;
+constexpr int kSampleStride = 36;
 constexpr int kNumC = 31;                  // butterfly constants
-constexpr int kDWindow = 1024;             // D window entries
+constexpr int kTables = 1056;              // 31 + the 1024-entry D window + 1
 constexpr float kOutScale = -1090519040.0f;  // -(65 << 24), exact in float
 
 enum OutForm { kOutU = 0, kOutF32 = 1, kOutS16 = 2 };
@@ -388,90 +423,138 @@ __device__ __forceinline__ float div_out_scale_exact(float u) {
   return __uint_as_float(out | (static_cast<uint32_t>(1 - su) << 31));
 }
 
-// One CTA: steps [t0, t0 + n) of stream blockIdx.y.
+// 16 bytes global -> shared, asynchronously (completed by cp_async_wait_all).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr int smem_bytes(int chunk) {
+  return 4 * (kTables + (kHalo + chunk) * (kRowStride + 2 * kSampleStride));
+}
+
+// One CTA: steps [t0, t0 + n) of stream blockIdx.y, t0 = blockIdx.x * chunk.
 template <bool RING, int FORM>
 __global__ void __launch_bounds__(kThreads)
 synth_kernel(const int* __restrict__ samples, const float* __restrict__ hist,
              const float* __restrict__ ring, int v_pos,
-             const float* __restrict__ tables, int steps,
+             const float* __restrict__ tables, int steps, int chunk,
              void* __restrict__ out, float* __restrict__ state) {
-  __shared__ float v[kRows * kRowStride];
-  __shared__ int sm[kRows * 2 * kSampleStride];
-  __shared__ float c[kNumC];
-  __shared__ float dwin[kDWindow];
-
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int64_t stream = blockIdx.y;
-  const int t0 = blockIdx.x * kChunk;
-  const int n = min(kChunk, steps - t0);
+  const int t0 = blockIdx.x * chunk;
+  const int n = min(chunk, steps - t0);
   const int rows = kHalo + n;              // row r holds step t0 - 15 + r
   const int phase = RING ? (v_pos >> 6) : 0;
+  float* tab = smem;                       // c[31], then the D window
+  float* v = smem + kTables;
+  int* sm = reinterpret_cast<int*>(v + (kHalo + chunk) * kRowStride);
+  const float* c = tab;
+  const float* dwin = tab + kNumC;
 
-  for (int i = tid; i < kNumC + kDWindow; i += kThreads) {
-    if (i < kNumC)
-      c[i] = tables[i];
-    else
-      dwin[i - kNumC] = tables[i];
-  }
-  // The samples of the rows whose steps are in this call.
+  // The prologue: all of it in flight before the one wait.
+  for (int i = tid; i < kTables / 4; i += kThreads)
+    cp_async16(tab + 4 * i, tables + 4 * i);
+  // The samples of the rows whose steps are in this call: 16 pieces a row,
+  // 8 a channel.
   const int first = t0 >= kHalo ? 0 : kHalo - t0;   // first such row
   const int* src = samples + (stream * steps + (t0 - kHalo + first)) * 64;
-  for (int i = tid; i < (rows - first) * 64; i += kThreads)
-    sm[(first * 2 + (i >> 5)) * kSampleStride + (i & 31)] = src[i];
+  for (int i = tid; i < (rows - first) * 16; i += kThreads)
+    cp_async16(sm + (first * 2 + (i >> 3)) * kSampleStride + 4 * (i & 7),
+               src + 4 * i);
   // The rows before the call's first step, from the history: row r is the
-  // block k = 15 - r steps before it.
-  for (int i = tid; i < first * 128; i += kThreads) {
-    const int r = i >> 7, ch = (i >> 6) & 1, x = i & 63, k = kHalo - r;
-    float val;
-    if (RING)
-      val = ring[(stream * 2 + ch) * 1024 + ((v_pos + 64 * (k - 1)) & 1023) + x];
-    else
-      val = hist[((stream * kHalo + (k - 1)) * 2 + ch) * 64 + x];
-    v[r * kRowStride + ch * kChanStride + x] = val;
+  // block k = 15 - t0 - r steps before it; 16 pieces a channel.
+  for (int i = tid; i < first * 32; i += kThreads) {
+    const int r = i >> 5, ch = (i >> 4) & 1, q = i & 15, k = kHalo - t0 - r;
+    const float* g =
+        RING ? ring + (stream * 2 + ch) * 1024 + ((v_pos + 64 * (k - 1)) & 1023)
+             : hist + ((stream * kHalo + (k - 1)) * 2 + ch) * 64;
+    cp_async16(v + r * kRowStride + ch * kChanStride + 4 * q, g + 4 * q);
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  for (int i = first * 2 + tid; i < rows * 2; i += kThreads)
-    dct32(&sm[i * kSampleStride], c, &v[(i >> 1) * kRowStride + (i & 1) * kChanStride]);
-  __syncthreads();
+  // The DCT: one thread a (row, channel) of this call, counted from the
+  // last thread, so that in a short chunk the warps with MAC steps are not
+  // the DCT's and take their taps meanwhile.
+  for (int i = first * 2 + (kThreads - 1 - tid); i < rows * 2; i += kThreads) {
+    int x[32];
+    const int4* in = reinterpret_cast<const int4*>(sm + i * kSampleStride);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int4 w = in[q];
+      x[4 * q] = w.x;
+      x[4 * q + 1] = w.y;
+      x[4 * q + 2] = w.z;
+      x[4 * q + 3] = w.w;
+    }
+    float d[64];
+    dct32(x, c, d);
+    float4* dst = reinterpret_cast<float4*>(v + (i >> 1) * kRowStride +
+                                            (i & 1) * kChanStride);
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      dst[q] = make_float4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+  }
 
-  // The windowed MAC: thread i -> step t0 + (i >> 6), lane (i >> 1) & 31,
-  // channel i & 1 (so an interleaved output is written contiguously).
-  for (int i = tid; i < n * 64; i += kThreads) {
-    const int tl = i >> 6, lane = (i >> 1) & 31, ch = i & 1;
-    const int t = t0 + tl;
-    const int vp = (64 * (phase - t - 1)) & 1023;   // the step's V position
-    const float* vrow = &v[(kHalo + tl) * kRowStride + ch * kChanStride + lane];
-    float u = 0.0f;
+  // The windowed MAC's taps.  Warp w takes the steps t0 + w + 16 m, whose V
+  // positions (64 (phase - t - 1)) & 1023 are one, so are their taps: tap k
+  // multiplies the window coefficient dk[k] by the entry at offset off[k]
+  // from the step's own row.
+  const int lane = tid & 31, warp = tid >> 5;
+  float dk[16];
+  int off[16];
+  if (warp < n) {
+    const int vp = (64 * (phase - t0 - warp - 1)) & 1023;
     int d_index = 512 - (vp >> 1);
     int v_index = (vp & 127) >> 1;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < 16; ++k) {
+      if (k == 8) {                                // the second pass
+        d_index -= 512 - 32;
+        v_index = (128 - 32 + 1024) - v_index;
+      }
       const int r = (v_index - vp) & 1023;         // j = r >> 6 blocks ago
-      u = fadd(u, fmul(dwin[d_index + lane], vrow[-(r >> 6) * kRowStride + (r & 63)]));
+      dk[k] = dwin[d_index + lane];
+      off[k] = -(r >> 6) * kRowStride + (r & 63);
       v_index += 128;
       d_index += 64;
     }
-    d_index -= 512 - 32;
-    v_index = (128 - 32 + 1024) - v_index;
+  }
+  __syncthreads();
+
+  // The windowed MAC: warp w's steps, both channels' chains a lane.
+  for (int tl = warp; tl < n; tl += kWarps) {
+    const float* vrow = v + (kHalo + tl) * kRowStride + lane;
+    float u0 = 0.0f, u1 = 0.0f;                    // channels 0 and 1
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int r = (v_index - vp) & 1023;
-      u = fadd(u, fmul(dwin[d_index + lane], vrow[-(r >> 6) * kRowStride + (r & 63)]));
-      v_index += 128;
-      d_index += 64;
+    for (int k = 0; k < 16; ++k) {
+      u0 = fadd(u0, fmul(dk[k], vrow[off[k]]));
+      u1 = fadd(u1, fmul(dk[k], vrow[off[k] + kChanStride]));
     }
-    const int64_t step = stream * steps + t;
+    const int64_t step = stream * steps + t0 + tl;
     if (FORM == kOutU) {
-      static_cast<float*>(out)[(step * 2 + ch) * 32 + lane] = u;
+      float* o = static_cast<float*>(out) + step * 64 + lane;
+      o[0] = u0;
+      o[32] = u1;
     } else if (FORM == kOutF32) {
-      static_cast<float*>(out)[step * 64 + (i & 63)] = __fdiv_rn(u, kOutScale);
+      static_cast<float2*>(out)[step * 32 + lane] =
+          make_float2(__fdiv_rn(u0, kOutScale), __fdiv_rn(u1, kOutScale));
     } else {
-      const float s = div_out_scale_exact(u);
-      const float scaled = s < 0.0f ? fmul(s, 32768.0f) : fmul(s, 32767.0f);
+      short2 pcm;
+      const float s0 = div_out_scale_exact(u0), s1 = div_out_scale_exact(u1);
       // float -> int32 truncates toward zero; int32 -> int16 wraps.
-      static_cast<int16_t*>(out)[step * 64 + (i & 63)] =
-          static_cast<int16_t>(static_cast<int>(scaled));
+      pcm.x = static_cast<short>(static_cast<int>(
+          s0 < 0.0f ? fmul(s0, 32768.0f) : fmul(s0, 32767.0f)));
+      pcm.y = static_cast<short>(static_cast<int>(
+          s1 < 0.0f ? fmul(s1, 32768.0f) : fmul(s1, 32767.0f)));
+      static_cast<short2*>(out)[step * 32 + lane] = pcm;
     }
   }
 
@@ -479,33 +562,70 @@ synth_kernel(const int* __restrict__ samples, const float* __restrict__ hist,
   // (new v_pos + 64 j) & 1023, or hist's 15, j steps before the last.
   const int keep = RING ? 16 : kHalo;
   const int from = max(t0, steps - keep);          // first step kept here
-  for (int i = tid; i < (t0 + n - from) * 128; i += kThreads) {
-    const int t = from + (i >> 7), ch = (i >> 6) & 1, x = i & 63;
+  for (int i = tid; i < (t0 + n - from) * 32; i += kThreads) {
+    const int t = from + (i >> 5), ch = (i >> 4) & 1, q = i & 15;
     const int j = steps - 1 - t;
-    const float val = v[(kHalo + t - t0) * kRowStride + ch * kChanStride + x];
+    const float4 val = reinterpret_cast<const float4*>(
+        v + (kHalo + t - t0) * kRowStride + ch * kChanStride)[q];
+    float* dst;
     if (RING) {
       const int new_pos = (v_pos - 64 * steps) & 1023;
-      state[(stream * 2 + ch) * 1024 + ((new_pos + 64 * j) & 1023) + x] = val;
+      dst = state + (stream * 2 + ch) * 1024 + ((new_pos + 64 * j) & 1023);
     } else {
-      state[((stream * kHalo + j) * 2 + ch) * 64 + x] = val;
+      dst = state + ((stream * kHalo + j) * 2 + ch) * 64;
     }
+    reinterpret_cast<float4*>(dst)[q] = val;
   }
 }
 
+// Steps a CTA: as many as one CTA a SM for all streams needs, within
+// [kMinChunk, kMaxChunk].
+int chunk_steps(int n_streams, int steps, int sms) {
+  const int ctas = sms / n_streams > 1 ? sms / n_streams : 1;  // a stream's
+  const int c = (steps + ctas - 1) / ctas;
+  return c < kMinChunk ? kMinChunk : (c > kMaxChunk ? kMaxChunk : c);
+}
+
+template <bool RING, int FORM>
+cudaError_t launch(const int* samples, const float* hist, const float* ring,
+                   int v_pos, const float* tables, int n_streams, int steps,
+                   void* out, float* state, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int chunk = chunk_steps(n_streams, steps, sms);
+  const int bytes = smem_bytes(chunk);
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(synth_kernel<RING, FORM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(kMaxChunk));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((steps + chunk - 1) / chunk, n_streams);
+  synth_kernel<RING, FORM><<<grid, kThreads, bytes, stream>>>(
+      samples, hist, ring, v_pos, tables, steps, chunk, out, state);
+  return cudaGetLastError();
+}
+
 template <bool RING>
-void launch(const int* samples, const float* hist, const float* ring, int v_pos,
-            const float* tables, int n_streams, int steps, int form, void* out,
-            float* state, cudaStream_t stream) {
-  const dim3 grid((steps + kChunk - 1) / kChunk, n_streams);
+cudaError_t launch_form(const int* samples, const float* hist,
+                        const float* ring, int v_pos, const float* tables,
+                        int n_streams, int steps, int form, void* out,
+                        float* state, cudaStream_t stream) {
   if (form == kOutU)
-    synth_kernel<RING, kOutU><<<grid, kThreads, 0, stream>>>(
-        samples, hist, ring, v_pos, tables, steps, out, state);
-  else if (form == kOutF32)
-    synth_kernel<RING, kOutF32><<<grid, kThreads, 0, stream>>>(
-        samples, hist, ring, v_pos, tables, steps, out, state);
-  else
-    synth_kernel<RING, kOutS16><<<grid, kThreads, 0, stream>>>(
-        samples, hist, ring, v_pos, tables, steps, out, state);
+    return launch<RING, kOutU>(samples, hist, ring, v_pos, tables, n_streams,
+                               steps, out, state, stream);
+  if (form == kOutF32)
+    return launch<RING, kOutF32>(samples, hist, ring, v_pos, tables,
+                                 n_streams, steps, out, state, stream);
+  return launch<RING, kOutS16>(samples, hist, ring, v_pos, tables, n_streams,
+                               steps, out, state, stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -515,7 +635,8 @@ extern "C" {
 // K4 over S streams of T steps: the ring form when `ring` is not null (its
 // last write position v_pos, T >= 16), else the hist form (T a multiple of
 // 16).  form: 0 u, 1 f32, 2 s16.  `state` receives the new ring or hist.
-// tables: float [31 + 1024], the butterfly constants then the D window.
+// tables: float [1056], the butterfly constants, the D window and one pad.
+// Every pointer must be 16-byte aligned (K4 copies in 16-byte pieces).
 // Arguments the wrapper refuses are refused here too, as
 // cudaErrorInvalidValue, and nothing launches.
 int mt_synthesize(const int* samples, const float* hist, const float* ring,
@@ -523,14 +644,16 @@ int mt_synthesize(const int* samples, const float* hist, const float* ring,
                   int form, void* out, float* state, void* stream) {
   const bool ok = n_streams > 0 && n_streams <= 65535 && form >= 0 && form <= 2 &&
                   (ring ? steps >= 16 && v_pos >= 0 && v_pos < 1024 && v_pos % 64 == 0
-                        : steps > 0 && steps % 16 == 0);
+                        : steps > 0 && steps % 16 == 0) &&
+                  aligned16(samples) && aligned16(ring ? ring : hist) &&
+                  aligned16(tables) && aligned16(out) && aligned16(state);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ring)
-    launch<true>(samples, hist, ring, v_pos, tables, n_streams, steps, form, out, state, s);
-  else
-    launch<false>(samples, hist, ring, v_pos, tables, n_streams, steps, form, out, state, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      ring ? launch_form<true>(samples, hist, ring, v_pos, tables, n_streams, steps,
+                               form, out, state, s)
+           : launch_form<false>(samples, hist, ring, v_pos, tables, n_streams, steps,
+                                form, out, state, s));
 }
 
 const char* mt_error_string(int code) {

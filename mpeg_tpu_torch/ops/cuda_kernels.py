@@ -36,8 +36,11 @@ a run can show that its main path went through the kernel.
   form and `make_finalize_jax` (none is a `pallas_call`), bit-exact with
   the plain version (`filterbank`); both count in `synthesize.launches`.
   Unlike the wrappers above, these check their inputs before taking the
-  plain version, so a CPU call refuses what a CUDA call refuses.
-  `synth_bound` gives the least bytes, operations and time of a call.
+  plain version, so a CPU call refuses what a CUDA call refuses; on the
+  card they also refuse samples and a ring or hist that do not start
+  16-byte aligned (K4 copies in 16-byte pieces; every tensor torch
+  allocates does).  `synth_bound` gives the least bytes, operations and
+  time of a call.
 """
 
 from __future__ import annotations
@@ -310,10 +313,11 @@ _DCT_FLOPS = 304        # dct32: 257 butterfly ops, 47 sign multiplies
 
 @functools.lru_cache(maxsize=None)
 def _synth_tables(device: torch.device) -> torch.Tensor:
-    """K4's constants on `device`: float32 [31 + 1024], the butterfly's
-    then the D window, the very values of the plain version."""
+    """K4's constants on `device`: float32 [1056], the butterfly's 31 then
+    the D window's 1024, the very values of the plain version, and one
+    zero, so that K4 copies them in whole 16-byte pieces."""
     return torch.from_numpy(np.concatenate(
-        [filterbank._C, D_WINDOW]).astype(np.float32)).to(device)
+        [filterbank._C, D_WINDOW, [0.0]]).astype(np.float32)).to(device)
 
 
 def _check_synth(samples, state, name, shape, out):
@@ -356,6 +360,11 @@ def _launch_synth(samples, hist, ring, v_pos: int, out: str):
 
     dev = samples.device
     s_n, steps = samples.shape[:2]
+    _check_aligned("K4", "samples", samples, 16)
+    if ring is None:
+        _check_aligned("K4", "hist", hist, 16)
+    else:
+        _check_aligned("K4", "ring", ring, 16)
     pcm, state = _synth_outputs(samples, hist if ring is None else ring, out)
     if s_n == 0:
         return pcm, state

@@ -10,10 +10,17 @@ from a seed, bit for bit (tolerance 0: floats compare as uint32 bits, so
 streams against `jax.vmap(make_synthesize_parallel_jax())`; the f32 form
 against `make_finalize_jax`; the s16 form against
 `make_synthesize_parallel_s16_jax`; two chained windows carrying the
-history.  Then what the wrappers refuse, on every device.
+history.  Then what the wrappers refuse, on every device.  Then K4's
+partition (csrc/synth.cu) mirrored in numpy: which CTA owns which steps,
+where each tap's row comes from (the CTA's own rows, a recomputed halo
+row, the ring or the hist) and each warp's shared taps, assembled from
+the plain `dct32` and an explicit 16-tap loop, bit for bit against the
+plain frame and window synthesis at ragged step counts and at every
+chunk the host can choose.
 
 The tests marked `cuda` hold K4 against its plain version on the card in
-every form and count its launches on the decoders' paths; they skip in
+every form, at ragged step counts, check that it refuses misaligned
+inputs and count its launches on the decoders' paths; they skip in
 their body without a card (run them there with
 `python -m pytest --noconftest tests/test_torch_synth.py -q -m cuda`)."""
 
@@ -25,6 +32,7 @@ import torch
 
 from mpeg_tpu_torch.ops import cuda_kernels as ck
 from mpeg_tpu_torch.ops import filterbank as tfb
+from mpeg_tpu_torch.tables import D_WINDOW
 from torch_threads import one_torch_thread  # noqa: F401
 
 TESTDATA = pathlib.Path(__file__).parent / "testdata"
@@ -258,6 +266,145 @@ def test_synth_bound_counts_the_window():
 
 
 # ---------------------------------------------------------------------------
+# K4's partition (csrc/synth.cu), mirrored in numpy
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+MIN_CHUNK, MAX_CHUNK, HALO, WARPS = 4, 96, 15, 16
+
+
+def _chunk_steps(streams: int, steps: int, sms: int = H100_SMS) -> int:
+    """synth.cu `chunk_steps`: steps a CTA, as many as one CTA a SM for
+    all streams needs, within [4, 96]."""
+    ctas = max(1, sms // streams)
+    return min(max(-(-steps // ctas), MIN_CHUNK), MAX_CHUNK)
+
+
+def _k4_mirror(x: np.ndarray, history: np.ndarray, v_pos: int, ring: bool,
+               chunk: int):
+    """One stream through K4's schedule: CTA c owns steps [c * chunk,
+    (c + 1) * chunk); its rows are the 15 blocks before its first step and
+    its own, the first from the ring or the hist where they lie before the
+    call, else recomputed with the plain `dct32`; warp w of a CTA runs the
+    steps w, w + 16, ... with the taps of the first of them, each output's
+    16 products summed in float32 in that order.  Returns (u [T, 2, 32],
+    the new ring or hist, {tap source: count})."""
+    steps = x.shape[0]
+    blocks = tfb.dct32(torch.from_numpy(x)).numpy()          # [T, 2, 64]
+    dwin = np.asarray(D_WINDOW, np.float32)
+    phase = v_pos >> 6 if ring else 0
+    lane = np.arange(32)
+    u = np.empty((steps, 2, 32), np.float32)
+    sources = {"own": 0, "recomputed": 0, "ring": 0, "hist": 0}
+    kept = {}                                   # step -> its block, as held
+    for t0 in range(0, steps, chunk):
+        n = min(chunk, steps - t0)
+        first = max(0, HALO - t0)
+        rows = np.empty((HALO + n, 2, 64), np.float32)
+        for r in range(first):           # block 15 - t0 - r before step 0
+            k = HALO - t0 - r
+            if ring:
+                p = (v_pos + 64 * (k - 1)) & 1023
+                rows[r] = history[:, p:p + 64]
+            else:
+                rows[r] = history[k - 1]
+        rows[first:] = blocks[t0 - HALO + first:t0 + n]
+        for tl in range(max(0, steps - (16 if ring else HALO) - t0), n):
+            kept[t0 + tl] = rows[HALO + tl]
+        tl = np.arange(n)
+        vp = (64 * (phase - t0 - tl % WARPS - 1)) & 1023   # each warp's
+        d_index, v_index = 512 - (vp >> 1), (vp & 127) >> 1
+        acc = np.zeros((n, 2, 32), np.float32)
+        for k in range(16):
+            if k == 8:
+                d_index = d_index - (512 - 32)
+                v_index = (128 - 32 + 1024) - v_index
+            r = (v_index - vp) & 1023
+            row, off = HALO + tl - (r >> 6), r & 63
+            sources["own"] += int((row >= HALO).sum())
+            sources["recomputed"] += int(((row >= first) & (row < HALO))
+                                         .sum())
+            sources["ring" if ring else "hist"] += int((row < first).sum())
+            taps = rows[row[:, None, None], np.arange(2)[:, None],
+                        (off[:, None] + lane)[:, None, :]]
+            acc = acc + dwin[d_index[:, None] + lane][:, None, :] * taps
+            v_index = v_index + 128
+            d_index = d_index + 64
+        u[t0:t0 + n] = acc
+    if ring:
+        new_pos = (v_pos - 64 * steps) & 1023
+        state = np.empty((2, 1024), np.float32)
+        for t, blk in kept.items():
+            p = (new_pos + 64 * (steps - 1 - t)) & 1023
+            state[:, p:p + 64] = blk
+    else:
+        state = np.stack([kept[steps - 1 - j] for j in range(HALO)])
+    return u, state, sources
+
+
+def _check_mirror(x, history, v_pos, ring, chunk):
+    got_u, got_state, sources = _k4_mirror(x, history, v_pos, ring, chunk)
+    if ring:
+        u, state, _ = tfb.synthesize_frame(torch.from_numpy(x),
+                                           torch.from_numpy(history), v_pos)
+    else:
+        u, state = tfb.synthesize_window(torch.from_numpy(x),
+                                         torch.from_numpy(history))
+    np.testing.assert_array_equal(_bits(got_u), _bits(u), f"chunk {chunk}")
+    np.testing.assert_array_equal(_bits(got_state), _bits(state))
+    # The history is read exactly by the taps of the first 15 steps that
+    # reach before step 0: 15 + 14 + ... + 1.
+    assert sources["ring" if ring else "hist"] == 120
+    steps = x.shape[0]
+    assert sum(sources.values()) == 16 * steps
+    assert (sources["recomputed"] > 0) == (steps > chunk)
+    return sources
+
+
+@pytest.mark.parametrize("v_pos", range(0, 1024, 64))
+def test_k4_partition_ring_form_matches_plain(v_pos):
+    """The ring form's schedule at the ragged step counts 16, 17, 36 and
+    53 from every V position, at every chunk the host can choose below
+    the step count (and one CTA), against `filterbank.synthesize_frame`
+    bit for bit."""
+    rng = np.random.default_rng(800 + v_pos)
+    for steps in (16, 17, 36, 53):
+        x = _samples(rng, 1, steps, steps == 17)[0]
+        ring = (rng.standard_normal((2, 1024)) * 3e4).astype(np.float32)
+        for chunk in range(MIN_CHUNK, min(steps, MAX_CHUNK) + 1):
+            _check_mirror(x, ring, v_pos, True, chunk)
+
+
+@pytest.mark.parametrize("steps", [48, 1168])
+def test_k4_partition_hist_form_matches_plain(steps):
+    """The hist form's schedule at 48 and 1,168 steps, at every chunk the
+    host can choose, against `filterbank.synthesize_window` bit for bit."""
+    rng = np.random.default_rng(900 + steps)
+    x, hist = _samples(rng, 1, steps)[0], _hist(rng, 1)[0]
+    for chunk in range(MIN_CHUNK, min(steps, MAX_CHUNK) + 1):
+        _check_mirror(x, hist, 0, False, chunk)
+
+
+def test_k4_chunk_choice():
+    """The chunks the host picks on an H100 (132 SMs): a frame takes 9
+    CTAs of 4 steps, a 32-frame window 128 CTAs of 9, 8 streams' windows
+    128 CTAs of 72 (one CTA a SM, one wave); at most 96 steps, so a CTA's
+    MAC takes at most 6 steps a warp; each thread at most 2 outputs for a
+    frame or a window."""
+    assert _chunk_steps(1, 36) == 4 and -(-36 // 4) == 9
+    assert _chunk_steps(1, 1152) == 9 and -(-1152 // 9) == 128
+    assert _chunk_steps(8, 1152) == 72 and 8 * -(-1152 // 72) == 128
+    assert _chunk_steps(64, 1152) == MAX_CHUNK
+    assert _chunk_steps(200, 16) == 16
+    for streams, steps in ((1, 36), (2, 53), (1, 1168), (8, 1168), (4, 576)):
+        chunk = _chunk_steps(streams, steps)
+        assert MIN_CHUNK <= chunk <= MAX_CHUNK
+        assert streams * -(-steps // chunk) <= H100_SMS or chunk == MAX_CHUNK
+    for steps in (36, 1152):            # outputs a thread: 2 a step a warp
+        assert 2 * -(-_chunk_steps(1, steps) // WARPS) == 2
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -282,7 +429,7 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("edge", [False, True])
-@pytest.mark.parametrize("steps", [16, 144, 1152])
+@pytest.mark.parametrize("steps", [16, 48, 144, 1152, 1168])
 @pytest.mark.parametrize("streams", [1, 8])
 def test_k4_hist_form_matches_plain_on_card(streams, steps, edge):
     dev = _card()
@@ -303,7 +450,7 @@ def test_k4_hist_form_matches_plain_on_card(streams, steps, edge):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("edge", [False, True])
-@pytest.mark.parametrize("steps", [16, 144, 1152])
+@pytest.mark.parametrize("steps", [16, 17, 36, 53, 144, 1152])
 @pytest.mark.parametrize("streams", [1, 8])
 def test_k4_ring_form_matches_plain_on_card(streams, steps, edge):
     dev = _card()
@@ -322,6 +469,31 @@ def test_k4_ring_form_matches_plain_on_card(streams, steps, edge):
             assert pos == plain[0][2]
             assert _same(got, _plain_form(u, out)), (v_pos, out)
             assert _same(got_ring, want_ring), (v_pos, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["samples", "hist", "ring"])
+def test_k4_refuses_misaligned_inputs_on_card(which):
+    """K4 copies in 16-byte pieces: a view that starts 4 bytes into its
+    storage is refused before any launch."""
+    dev = _card()
+    flat = torch.zeros(1 + 144 * 64, dtype=torch.int32, device=dev)
+    x = torch.zeros((1, 144, 2, 32), dtype=torch.int32, device=dev)
+    hist = torch.zeros((1, 15, 2, 64), device=dev)
+    ring = torch.zeros((1, 2, 1024), device=dev)
+    if which == "samples":
+        x = flat[1:].view(1, 144, 2, 32)
+    elif which == "hist":
+        hist = torch.zeros(1 + hist.numel(), device=dev)[1:].view(1, 15, 2, 64)
+    else:
+        ring = torch.zeros(1 + ring.numel(), device=dev)[1:].view(1, 2, 1024)
+    before = ck.synthesize.launches
+    with pytest.raises(ValueError, match=f"{which}: K4 needs its data 16-byte"):
+        if which == "ring":
+            ck.synthesize_ring(x, ring, 0)
+        else:
+            ck.synthesize(x, hist)
+    assert ck.synthesize.launches == before
 
 
 @pytest.mark.cuda
