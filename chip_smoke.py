@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`mpeg_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
-                          [--synth-baseline SYNTH_CU]
+                          [--synth-baseline SYNTH_CU] [--parent-tree DIR]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
-(recon.cu and synth.cu, each its own library, and the C++ host parser
-with g++, all at the same time) and holds each kernel against its plain
+(recon.cu, synth.cu and densify.cu, each its own library, and the C++
+host parser with g++, all at the same time) and holds each kernel against
+its plain
 PyTorch version on the card at 1080p (K1 on adversarial plans, one
 picture and 64 streams in one launch; K2; K3, the whole path and its two
 plane launches alone; K1 and K3 on the 1080p fixture's 32 pictures in
@@ -15,8 +16,12 @@ synthesis, bit for bit in every form (`k4`: the ring form from all 16 V
 positions and at ragged step counts, 32-frame and ragged windows as f32,
 s16 and raw outputs, 8 streams in one launch), timed per frame and per
 window in turns with its plain version beside its bound and the launch
-floor; then drives every path
-of the port and checks its output:
+floor; and K5, the window densify and metadata unpack (`k5`), bit for
+bit on every coded block and metadata tensor at the main path's shapes
+(the 1080p fixture's window of 16, two rounds of the 64-stream decode at
+window 2, the 8-stream shard at window 16, a one-picture blob, malformed
+chains), timed beside its bound and its plain version; then drives every
+path of the port and checks its output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
   device="cuda")` against their golden hashes;
@@ -56,6 +61,12 @@ copy of `recon.cu` (an earlier commit's, or an edited copy with another
 ring depth, CTAs a SM or consumer mapping) and times them and this K1
 and K3 in turns (baseline, this, this, baseline) on the fixture's
 pictures, the adversarial plan and (K1) 64-stream launches.
+`--parent-tree DIR` (a checkout of another commit, e.g. the parent's
+unpacked by `git archive` into a git-ignored directory) times the
+end-to-end rates of that tree and of this one in turns (parent, this,
+this, parent; the 64-stream and sharded decodes also profiled), each
+turn a process of its own that imports the package from its tree
+(`--rates-of`).
 `--synth-baseline` (which may be repeated) likewise builds K4 from
 another copy of `synth.cu` with K4's flags, holds its outputs and states
 equal to this K4's on ragged calls and on the timed inputs, and times the
@@ -71,11 +82,12 @@ measures the profiled decode passes' idle share.
 
 Each path's kernel launch counts (the wrappers' counters) are set to 0
 just before it runs and read just after; the MP2 paths also fail if the
-plain filterbank sees a CUDA tensor.  Every phase prints one JSON line;
-any failure raises, so the exit code is nonzero and the closing
-`{"ok": true, ...}` line never prints.  Without a CUDA device, or
-outside a checkout of the repository, it exits nonzero before printing
-any result.  Imports nothing of JAX.
+plain filterbank sees a CUDA tensor, and the video paths if the plain
+densify or metadata unpack does (`no_plain_densify`).  Every phase
+prints one JSON line; any failure raises, so the exit code is nonzero
+and the closing `{"ok": true, ...}` line never prints.  Without a CUDA
+device, or outside a checkout of the repository, it exits nonzero
+before printing any result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -237,6 +249,7 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     lib = _build.load()
     _build.load("synth")
+    _build.load("densify")
     native.load()
     emit({"phase": "build",
           "libraries": {name: {"library": os.path.relpath(so, REPO),
@@ -671,6 +684,129 @@ def _synth_turns(source: str, inputs: dict, check: bool,
     return res
 
 
+def _k5_inputs(dev) -> dict:
+    """K5's inputs at the main path's shapes, on the card: name ->
+    (meta_esc, main_rec, geom, window, km, ke), the blobs as each path
+    transfers them: the 1080p fixture's first window of 16 (a bucket of
+    its filled records); the first two rounds of 64 streams of the fixture
+    (four lengths) at window 2, one global chain of 128 pictures; the
+    first window of 8 streams at window 16, a [8, bytes] stack at common
+    buckets, as the sharded decoder gets it; the fixture's first picture
+    as a one-picture blob, as `PictureBlobRecon` gets it; and a malformed
+    64x48 blob whose main chain wraps negative (every delta 0xFFFF)."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.ops.video_recon import FrameGeometry
+    from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
+                                         MultiStreamVideoDecoder)
+    from mpeg_tpu_torch.parallel.batch import (
+        _MIN_KM, blob_layout, blob_split, blob_views, pool_bucket)
+
+    data = _fixture_1080p()
+
+    def window_blob(window):
+        dec = BatchVideoDecoder(data, window=window, device="cuda")
+        blob, _types, fill = dec._native_window_blob()
+        km, ke = dec._km, dec._ke
+        split = blob_split(dec.geom, window, km, ke)
+        kt = min(pool_bucket(max(fill[0], 1), _MIN_KM), km)
+        return (torch.from_numpy(blob[:split]).to(dev),
+                torch.from_numpy(blob[split:split + 4 * kt]).to(dev),
+                dec.geom, window, km, ke)
+
+    out = {"fixture_window_16": window_blob(16)}
+    cuts = _stream_cuts(data)
+    ms = MultiStreamVideoDecoder(
+        [cuts[s % len(cuts)] for s in range(N_STREAMS)], window=2,
+        device="cuda")
+    for r in range(2):
+        slot, _types, nm, (kmg, keg) = ms._fill()
+        kt = min(pool_bucket(max(nm, 1), _MIN_KM), kmg)
+        out[f"streams_64_round_{r}"] = (
+            torch.from_numpy(slot.meta).to(dev),
+            torch.from_numpy(slot.main[:4 * kt]).to(dev), ms.geom,
+            ms.n * ms.window, kmg, keg)
+        slot.evt.set()
+    parsed = [_native_windows(c, 16) for c in cuts]
+    geom = parsed[0][0]
+    blobs, _types, km, ke = _common_blobs(
+        [parsed[s % len(cuts)][1] for s in range(SHARDED_STREAMS)], geom, 16)
+    stack = torch.from_numpy(blobs[0]).to(dev)
+    split = blob_split(geom, 16, km, ke)
+    out["sharded_8_window_16"] = (stack[:, :split], stack[:, split:], geom,
+                                  16, km, ke)
+    out["interactive_picture"] = window_blob(1)
+    small = FrameGeometry.for_size(64, 48)
+    km, ke = 65536, 64
+    blob = np.zeros(blob_layout(small, 2, km, ke)[1], np.uint8)
+    v = blob_views(blob, small, 2, km, ke)
+    v["main_rec"][0::2] = 0xFFFF
+    v["main_rec"].view(np.int16)[1::2] = 3
+    v["esc_didx"][:] = 0xFFFF
+    v["esc_val"][:] = 7
+    v["nbcls"][:] = 0x0FFF            # every block coded
+    split = blob_split(small, 2, km, ke)
+    blob = torch.from_numpy(blob).to(dev)
+    out["malformed_wrapping"] = (blob[:split], blob[split:], small, 2, km, ke)
+    return out
+
+
+def phase_k5() -> dict:
+    """K5 against its plain version on the card at the main path's shapes
+    (`_k5_inputs`): every coded block's coefficients and every metadata
+    tensor bit for bit, K5's outputs allocated on memory left full of
+    junk; then K5 by `queued_ms`, the plain pair by `cuda_ms` and its aten
+    ops (`count_launches`), beside `densify_bound`."""
+    import torch
+
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.parallel import batch
+    from mpeg_tpu_torch.tables import PREMULTIPLIER_MATRIX
+
+    dev = torch.device("cuda")
+    premult = torch.tensor(PREMULTIPLIER_MATRIX, dtype=torch.int32,
+                           device=dev)
+    rep = torch.tensor(batch._NB_CLASS_REP, dtype=torch.int32, device=dev)
+    out = {"phase": "k5", "shapes": {}}
+    worst = 0
+    for name, (meta, main, geom, window, km, ke) in _k5_inputs(dev).items():
+        args = (meta, main, geom, window, km, ke, premult, rep)
+        want_c, want_m = batch.densify_unpack_plain(*args)
+        junk = torch.full_like(want_c, -0x2A2A2A2B)
+        del junk                       # K5's torch.empty lands on junk
+        cuda_kernels.reset_launches()
+        got_c, got_m = batch.densify_unpack(*args)
+        torch.cuda.synchronize()
+        launches = cuda_kernels.densify_unpack.launches
+        coded = want_m["nblocks"] > 0
+        err = _max_abs_err(got_c[coded], want_c[coded]) if coded.any() else 0
+        worst = max(worst, err)
+        if launches != 2 or err or set(got_m) != set(want_m) or not all(
+                torch.equal(got_m[k], want_m[k]) for k in want_m):
+            fail(f"k5 differs from its plain version on {name} "
+                 f"(max abs err {err}, {launches} launches)")
+        streams = meta.shape[0] if meta.dim() == 2 else 1
+        kt = main.shape[-1] // 4
+        bound = cuda_kernels.densify_bound(want_m["nblocks"], streams * kt,
+                                           streams * ke)
+        del want_c, got_c
+        iters = 20 if window * geom.mb_size > 100_000 else 100
+        out["shapes"][name] = {
+            "streams": streams, "pictures": streams * window,
+            "main_records": streams * kt, "escape_records": streams * ke,
+            "coded_blocks": int(coded.sum()), "max_abs_err": err,
+            "ms": queued_ms(lambda: batch.densify_unpack(*args), iters),
+            "plain_ms": cuda_ms(lambda: batch.densify_unpack_plain(*args),
+                                max(iters // 4, 5)),
+            "plain_launches": count_launches(
+                lambda: batch.densify_unpack_plain(*args)),
+            "bound_ms": bound["us"] / 1e3, "bound_bytes": bound["bytes"]}
+    out["max_abs_err"] = worst
+    emit(out)
+    return out
+
+
 def _fixture_1080p() -> bytes:
     return open(os.path.join(TESTDATA, "test1080.m1v"), "rb").read()
 
@@ -1094,7 +1230,8 @@ def phase_e2e_1080p() -> dict:
     frames = dec.decode_all()
     torch.cuda.synchronize()
     launches = {"reconstruct_picture": cuda_kernels.reconstruct_picture
-                .launches, "idct_batch": cuda_kernels.idct_batch.launches}
+                .launches, "idct_batch": cuda_kernels.idct_batch.launches,
+                "densify_unpack": cuda_kernels.densify_unpack.launches}
     pictures = len(dec._types)
     fs = dec.geom.frame_size
     if len(want) != 32:
@@ -1103,6 +1240,9 @@ def phase_e2e_1080p() -> dict:
     if launches["reconstruct_picture"] != pictures or pictures == 0:
         fail(f"K1 launched {launches['reconstruct_picture']} times for "
              f"{pictures} pictures")
+    if launches["densify_unpack"] != 2 * -(-pictures // 16):
+        fail(f"K5 launched {launches['densify_unpack']} times for "
+             f"{pictures} pictures in windows of 16")
 
     passes = {False: [], True: []}
     for i in range(1 + E2E_PASSES):
@@ -1170,13 +1310,15 @@ def phase_recon_multi_1080p() -> dict:
                 cuda_kernels.reconstruct_picture_multi.launches,
                 "idct_batch": cuda_kernels.idct_batch.launches,
                 "reconstruct_picture": cuda_kernels.reconstruct_picture
-                .launches}
+                .launches,
+                "densify_unpack": cuda_kernels.densify_unpack.launches}
     pictures = len(dec._types)
     _check_against_host(frames, want, dec.geom.frame_size,
                         "1080p through K3")
     if len(frames) != 32 or launches != {
             "reconstruct_picture_multi": 2 * pictures,
-            "idct_batch": pictures, "reconstruct_picture": 0}:
+            "idct_batch": pictures, "reconstruct_picture": 0,
+            "densify_unpack": 2 * -(-pictures // 16)}:
         fail(f"K3 path: {len(frames)} frames, {pictures} pictures, "
              f"launches {launches}")
 
@@ -1280,7 +1422,8 @@ def phase_multistream_1080p() -> dict:
     launches = {"reconstruct_picture": cuda_kernels.reconstruct_picture
                 .launches, "idct_batch": cuda_kernels.idct_batch.launches,
                 "reconstruct_picture_multi":
-                    cuda_kernels.reconstruct_picture_multi.launches}
+                    cuda_kernels.reconstruct_picture_multi.launches,
+                "densify_unpack": cuda_kernels.densify_unpack.launches}
     fs = ms.geom.frame_size
     for s in range(N_STREAMS):
         _check_against_host(frames[s], want[s % len(cuts)], fs,
@@ -1291,6 +1434,10 @@ def phase_multistream_1080p() -> dict:
     if not 0 < launches["reconstruct_picture"] <= bound:
         fail(f"K1 launched {launches['reconstruct_picture']} times in "
              f"{rounds} rounds (bound {bound})")
+    k5_rounds = -(-max(len(w) for w in want) // ms.window)
+    if launches["densify_unpack"] != 2 * k5_rounds:
+        fail(f"K5 launched {launches['densify_unpack']} times in "
+             f"{k5_rounds} rounds that hold pictures")
     del frames, want
 
     passes = {False: [], True: []}
@@ -1421,6 +1568,36 @@ def no_plain_synthesis():
     if on_card:
         fail(f"the plain filterbank ran on the card {len(on_card)} times "
              f"(shapes {on_card[:3]})")
+
+
+@contextlib.contextmanager
+def no_plain_densify():
+    """Fails the run when the plain version of K5 (`parallel.batch`'s
+    `densify_split` or `unpack_blob_meta`) runs on the card inside: both
+    are wrapped meanwhile to record the CUDA tensors they get (every video
+    path on the card must go through K5)."""
+    from mpeg_tpu_torch.parallel import batch
+
+    names = ("densify_split", "unpack_blob_meta")
+    plain, on_card = {name: getattr(batch, name) for name in names}, []
+
+    def guard(name, fn):
+        def run(blob, *args, **kwargs):
+            if blob.device.type == "cuda":
+                on_card.append(name)
+            return fn(blob, *args, **kwargs)
+        return run
+
+    for name, fn in plain.items():
+        setattr(batch, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in plain.items():
+            setattr(batch, name, fn)
+    if on_card:
+        fail(f"the plain densify ran on the card {len(on_card)} times "
+             f"({sorted(set(on_card))})")
 
 
 def _passes(run, n: int = E2E_PASSES) -> list:
@@ -1591,22 +1768,27 @@ def phase_interactive_golden() -> dict:
         cuda_kernels.reset_launches()
         got = frames_hash(video.decode)
         launches = cuda_kernels.reconstruct_picture.launches
+        k5 = cuda_kernels.densify_unpack.launches
         out[f"video_{parser}"] = {"frames": got[0], "hash": f"{got[1]:#018x}",
-                                  "k1_launches": launches}
-        if got != GOLDEN_VIDEO or launches != _video_pictures(es):
+                                  "k1_launches": launches,
+                                  "k5_launches": k5}
+        if got != GOLDEN_VIDEO or launches != _video_pictures(es) or \
+                k5 != 2 * launches:
             fail(f"Video({parser}): {got[0]} frames, hash {got[1]:#018x}, "
-                 f"K1 launched {launches} times")
+                 f"K1 launched {launches} times, K5 {k5}")
 
     m = MPEG(ps, device="cuda")
     m.set_audio_enabled(False)
     cuda_kernels.reset_launches()
     got = frames_hash(m.decode_video)
     launches = cuda_kernels.reconstruct_picture.launches
+    k5 = cuda_kernels.densify_unpack.launches
     out["mpeg_video"] = {"frames": got[0], "hash": f"{got[1]:#018x}",
-                         "k1_launches": launches}
-    if got != GOLDEN_PS or launches != _video_pictures(ps):
+                         "k1_launches": launches, "k5_launches": k5}
+    if got != GOLDEN_PS or launches != _video_pictures(ps) or \
+            k5 != 2 * launches:
         fail(f"MPEG.decode_video: {got[0]} frames, hash {got[1]:#018x}, "
-             f"K1 launched {launches} times")
+             f"K1 launched {launches} times, K5 {k5}")
     m = MPEG(ps, device="cuda")
     m.set_video_enabled(False)
     pcm = []
@@ -1693,6 +1875,7 @@ def phase_interactive_1080p() -> dict:
     torch.cuda.synchronize()
     launches = cuda_kernels.reconstruct_picture.launches
     k4_launches = cuda_kernels.synthesize.launches
+    k5_launches = cuda_kernels.densify_unpack.launches
     pictures = _video_pictures(ps)
     geom = m.video().geom
     _check_against_host(frames, want, geom.frame_size, "interactive 1080p")
@@ -1702,6 +1885,9 @@ def phase_interactive_1080p() -> dict:
     if k4_launches != len(pcm):
         fail(f"interactive 1080p: K4 launched {k4_launches} times for "
              f"{len(pcm)} audio frames")
+    if k5_launches != 2 * pictures:
+        fail(f"interactive 1080p: K5 launched {k5_launches} times for "
+             f"{pictures} pictures")
     if not pcm or len(pcm) != len(cpu_pcm) or \
             not np.array_equal(np.concatenate(pcm), np.concatenate(cpu_pcm)):
         fail(f"interactive 1080p audio: {len(pcm)} frames on the card, "
@@ -1767,7 +1953,8 @@ def phase_interactive_1080p() -> dict:
            "bytes": len(ps), "frames": 32, "pictures": pictures,
            "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
            "audio_equal_to_cpu": True, "k1_launches": launches,
-           "k4_launches": k4_launches, "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
+           "k4_launches": k4_launches, "k5_launches": k5_launches,
+           "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
            "parse_share_median": med("parse_share"),
            "pack_and_enqueue_share_median": med("pack_and_enqueue_share"),
            "synthesis_share_median": med("synthesis_share"),
@@ -1961,6 +2148,7 @@ def phase_sharded_1080p() -> dict:
                                            window, km, ke)
         torch.cuda.synchronize()
         launches = cuda_kernels.reconstruct_picture.launches
+        k5_launches = cuda_kernels.densify_unpack.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         for s in range(SHARDED_STREAMS):
             _check_against_host(frames[s], want[s % len(cuts)], fs,
@@ -1971,6 +2159,9 @@ def phase_sharded_1080p() -> dict:
         if not 0 < launches <= bound:
             fail(f"sharded ({name}): K1 launched {launches} times "
                  f"(bound {bound})")
+        if k5_launches != 2 * len(blobs) * len(mesh.devices):
+            fail(f"sharded ({name}): K5 launched {k5_launches} times for "
+                 f"{len(blobs)} windows on {len(mesh.devices)} shards")
         n_frames = sum(len(f) for f in frames)
         del frames
 
@@ -1983,6 +2174,7 @@ def phase_sharded_1080p() -> dict:
             "devices": [str(d) for d in mesh.devices], "frames": n_frames,
             "equal_to_native_host_decoder": True, "total_px": total_px,
             "total_px_dtype": "int64", "k1_launches": launches,
+            "k5_launches": k5_launches,
             "k1_launch_bound": bound, "peak_device_gib": peak_gib,
             "fps_median": n_frames / statistics.median(walls),
             "walls_s": walls,
@@ -2106,6 +2298,124 @@ def phase_examples() -> dict:
     return out
 
 
+def _rates(tree: str) -> dict:
+    """The smoke run's end-to-end rates of the package in `tree` (this
+    process imports it from there), each over fresh decoders, the median
+    of 3 after a warm-up: the 1080p single stream and the 64 streams
+    (prefetch off and on), the sharded 8 streams on the card and on it
+    twice (the parse done first), the 1080p A/V decode's video frames,
+    `Audio.decode` and `BatchAudioDecoder` frames; with the peak device
+    memory of the timed passes, and one profiled pass of the 64-stream
+    and the sharded decodes."""
+    import io
+
+    import torch
+
+    import mpeg_tpu_torch
+    from mpeg_tpu_torch import MPEG, Audio, Buffer
+    from mpeg_tpu_torch.parallel import (BatchAudioDecoder,
+                                         BatchVideoDecoder,
+                                         MultiStreamVideoDecoder)
+    from mpeg_tpu_torch.parallel import sharding as sh
+
+    where = os.path.dirname(os.path.dirname(os.path.abspath(
+        mpeg_tpu_torch.__file__)))
+    if os.path.realpath(where) != os.path.realpath(tree):
+        fail(f"--rates-of {tree}: imported the package from {where}")
+    data = _fixture_1080p()
+    cuts = _stream_cuts(data)
+    streams = [cuts[s % len(cuts)] for s in range(N_STREAMS)]
+    mp2 = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
+    ps = _ps_1080p()
+
+    def measured(run, frames_of, profile=False):
+        walls, peaks, frames = [], [], []
+        for i in range(1 + E2E_PASSES):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = run()
+            torch.cuda.synchronize()
+            if i:                          # the first pass: not timed
+                walls.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                frames.append(frames_of(got))
+            del got
+        wall = statistics.median(walls)
+        out = {"frames": frames[0], "walls_s": walls,
+               "fps_median": frames[0] / wall, "peak_device_gib": max(peaks)}
+        if profile:
+            out["profiled_pass"] = profiled_pass(run, wall)
+        return out
+
+    def decode_audio():
+        buf = Buffer(io.BytesIO(mp2))
+        buf.set_load_callback(buf.load_reader_callback)
+        audio, n = Audio(buf, device="cuda"), 0
+        while audio.decode() is not None:
+            n += 1
+        return n
+
+    def decode_av():
+        count = [0]
+        _clock_decode(MPEG(ps, device="cuda"),
+                      lambda _m, f: count.__setitem__(0, count[0] + 1),
+                      lambda _m, smp: None)
+        return count[0]
+
+    count_streams = lambda got: sum(len(f) for f in got)  # noqa: E731
+    out = {"tree": tree}
+    for prefetch in (False, True):
+        key = "_prefetch" if prefetch else ""
+        out["single_1080p" + key] = measured(
+            lambda: BatchVideoDecoder(data, window=16, device="cuda",
+                                      prefetch=prefetch).decode_all(), len)
+        out["streams_64" + key] = measured(
+            lambda: MultiStreamVideoDecoder(
+                streams, window=2, device="cuda",
+                prefetch=prefetch).decode_all(), count_streams,
+            profile=not prefetch)
+    parsed = [_native_windows(c, 16) for c in cuts]
+    geom = parsed[0][0]
+    blobs, types, km, ke = _common_blobs(
+        [parsed[s % len(cuts)][1] for s in range(SHARDED_STREAMS)], geom, 16)
+    for name, devices in (("sharded_8", None),
+                          ("sharded_8_card_twice", ["cuda:0", "cuda:0"])):
+        mesh = sh.make_mesh(devices)
+        out[name] = measured(
+            lambda: _sharded_decode(sh, geom, mesh, blobs, types, 16, km,
+                                    ke),
+            lambda got: count_streams(got[0]), profile=devices is None)
+    out["interactive_1080p"] = measured(decode_av, lambda n: n)
+    out["audio"] = measured(decode_audio, lambda n: n)
+    out["batch_audio"] = measured(
+        lambda: BatchAudioDecoder(mp2, window=32, device="cuda").decode_all(),
+        lambda pcm: len(pcm) // 2304)      # 1,152 samples x 2 a frame
+    return out
+
+
+def phase_turns(parent: str) -> dict:
+    """The end-to-end rates of the tree in `parent` and of this one in
+    turns (parent, this, this, parent), each turn its own process
+    (`--rates-of`), all on this card."""
+    import subprocess
+
+    turns = []
+    for who in ("parent", "this", "this", "parent"):
+        tree = os.path.abspath(parent) if who == "parent" else REPO
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--rates-of", tree],
+            capture_output=True, text=True, cwd=REPO, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            fail(f"turn of {who} ({tree}): rc {proc.returncode}, "
+                 f"{proc.stderr[-1500:]}")
+        turns.append({"who": who, **json.loads(lines[-1])})
+    out = {"phase": "turns", "parent_tree": parent, "turns": turns}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2115,6 +2425,10 @@ def main() -> int:
                     help="also time K1 and K3 built from this copy of "
                          "recon.cu in turns with this K1 and K3 (may be "
                          "repeated)")
+    ap.add_argument("--parent-tree", metavar="DIR",
+                    help="also time the end-to-end rates of the checkout "
+                         "in DIR and of this one in turns")
+    ap.add_argument("--rates-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--synth-baseline", metavar="SYNTH_CU", action="append",
                     default=[],
                     help="also build K4 from this copy of synth.cu, hold "
@@ -2129,6 +2443,10 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "mpeg_tpu_torch")):
         fail(f"no mpeg_tpu_torch package beside {__file__}: run from a "
              "checkout of the repository")
+    if args.rates_of:                     # one turn of phase_turns
+        sys.path.insert(0, os.path.abspath(args.rates_of))
+        emit(_rates(os.path.abspath(args.rates_of)))
+        return 0
     sys.path.insert(0, REPO)
 
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
@@ -2138,17 +2456,21 @@ def main() -> int:
     parity = phase_kernel_parity(args.seed)
     k4 = phase_k4(args.seed, parity["launch_floor_ms"], args.synth_baseline)
     fixture = phase_k1_fixture(args.baseline)
-    phase_golden()
-    e2e = phase_e2e_1080p()
-    multi = phase_recon_multi_1080p()
-    phase_multistream_golden()
-    streams = phase_multistream_1080p()
-    phase_rgba()
-    audio = phase_audio()
-    phase_interactive_golden()
-    interactive = phase_interactive_1080p()
-    phase_dense()
-    sharded = phase_sharded_1080p()
+    k5 = phase_k5()
+    with no_plain_densify():
+        phase_golden()
+        e2e = phase_e2e_1080p()
+        multi = phase_recon_multi_1080p()
+        phase_multistream_golden()
+        streams = phase_multistream_1080p()
+        phase_rgba()
+        audio = phase_audio()
+        phase_interactive_golden()
+        interactive = phase_interactive_1080p()
+        phase_dense()
+        sharded = phase_sharded_1080p()
+    if args.parent_tree:
+        phase_turns(args.parent_tree)
     phase_multihost()
     phase_examples()
     # The four decodes' idle share, or that the profiler recorded nothing.
@@ -2254,6 +2576,24 @@ def main() -> int:
             sharded_launches=sharded["audio"]["k4_launches"]["card"],
             library_note="none: no single PyTorch call computes the "
             "synthesis bit-exactly (a matmul reorders and contracts)"),
+        # K5, the counterpart of the jitted densify and metadata unpack,
+        # not of a pallas_call: launches on the 64-stream path (two a
+        # round); `ms` a round of it (the first, I and P pictures), each
+        # shape of the `k5` phase in `shapes`.
+        row("densify_unpack", streams["launches"]["densify_unpack"],
+            k5["max_abs_err"], k5["shapes"]["streams_64_round_0"]["ms"],
+            k5["shapes"]["streams_64_round_0"]["plain_ms"],
+            k5["shapes"]["streams_64_round_0"]["bound_ms"],
+            source="mpeg_tpu_torch/csrc/densify.cu",
+            replaces="mpeg_tpu/parallel/batch.py:392",
+            also_replaces=["mpeg_tpu/parallel/batch.py:460"],
+            single_launches=e2e["launches"]["densify_unpack"],
+            interactive_launches=interactive["k5_launches"],
+            sharded_launches=sharded["meshes"]["card"]["k5_launches"],
+            shapes=k5["shapes"],
+            library_note="none: index_add_ is only the scatter, the last "
+            "step; no PyTorch call does the prefix sum, the premultiply, "
+            "the scatter and the unpack"),
     ]})
     smi = gpu_name_and_power_limit()
     if not smi:

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu).
+"""Build and load the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu,
+csrc/densify.cu).
 
 nvcc compiles each source into a shared library of its own with a plain C
 interface, loaded with ctypes — seconds per build, where a source that
@@ -9,7 +10,8 @@ root of the checkout (as mpeg_tpu/native.py builds the C++ parser).
 `LIBRARIES` names each library's source, flags and binder: K4
 (synth.cu) is bit-exact float32 only without FMA contraction and with the
 IEEE quotient, so it adds `-fmad=false`, `-prec-div=true` and
-`-ftz=false` (and never `--use_fast_math`).
+`-ftz=false` (and never `--use_fast_math`); K5 (densify.cu) is integer work
+with the default flags.
 """
 
 from __future__ import annotations
@@ -120,12 +122,48 @@ def bind_synth(so: str) -> ctypes.CDLL:
     return _bind_error_string(lib)
 
 
+class DensifyArgs(ctypes.Structure):
+    """csrc/densify.cu `MtDensifyArgs`, field for field (`bind_densify`
+    checks the size against the library's)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("meta", "main")] + [
+        ("meta_stride", ctypes.c_longlong), ("main_stride", ctypes.c_longlong),
+    ] + [(name, ctypes.c_void_p) for name in (
+        "premult", "nb_class_rep", "coeffs", "nblocks", "intra_blk",
+        "src_sel", "mv_h", "mv_v", "is_ref", "is_noop", "sums")] + [
+        (name, ctypes.c_int) for name in (
+            "streams", "window", "mb", "kt", "ke", "off_flags", "off_mv_h",
+            "off_mv_v", "off_nbcls", "off_mbmisc", "off_esc_didx",
+            "off_esc_val")]
+
+
+def bind_densify(so: str) -> ctypes.CDLL:
+    """A built densify.cu library (K5) with its entry points' argument
+    types set."""
+    lib = ctypes.CDLL(so)
+    i32 = ctypes.c_int
+    lib.mt_densify_args_bytes.argtypes = []
+    lib.mt_densify_args_bytes.restype = i32
+    if lib.mt_densify_args_bytes() != ctypes.sizeof(DensifyArgs):
+        raise RuntimeError(
+            f"densify.cu's MtDensifyArgs holds {lib.mt_densify_args_bytes()} "
+            f"bytes, DensifyArgs {ctypes.sizeof(DensifyArgs)}")
+    lib.mt_densify_scratch_words.argtypes = [i32, i32, i32]
+    lib.mt_densify_scratch_words.restype = ctypes.c_longlong
+    lib.mt_densify_unpack.argtypes = [ctypes.POINTER(DensifyArgs),
+                                      ctypes.c_void_p]
+    lib.mt_densify_unpack.restype = i32
+    return _bind_error_string(lib)
+
+
 # name -> (source, nvcc flags, binder)
 LIBRARIES = {
     "recon": (os.path.join(_PKG, "csrc", "recon.cu"), NVCC_FLAGS, bind),
     "synth": (os.path.join(_PKG, "csrc", "synth.cu"),
               NVCC_FLAGS + ["-fmad=false", "-prec-div=true", "-ftz=false"],
               bind_synth),
+    "densify": (os.path.join(_PKG, "csrc", "densify.cu"), NVCC_FLAGS,
+                bind_densify),
 }
 
 

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu).
+"""Wrappers of the hand-written CUDA kernels (csrc/recon.cu, csrc/synth.cu,
+csrc/densify.cu).
 
 Port of `mpeg_tpu/ops/pallas_kernels.py`.  Each wrapper takes the plain
 PyTorch version (`video_recon`) for tensors on the CPU; for CUDA tensors it
@@ -40,6 +41,15 @@ a run can show that its main path went through the kernel.
   card they also refuse samples and a ring or hist that do not start
   16-byte aligned (K4 copies in 16-byte pieces; every tensor torch
   allocates does).  `synth_bound` gives the least bytes, operations and
+  time of a call.
+- `densify_unpack` (K5, csrc/densify.cu, a library of its own): S streams'
+  window blobs to their plan tensors in two launches: the coefficients of
+  every coded block (the blob's delta-coded records: prefix sum,
+  premultiply, scatter-add) and the seven metadata tensors.  Replaces the
+  jitted `densify_split_jax` and `unpack_blob_meta` (not `pallas_call`s).
+  It takes CUDA tensors only: `parallel.batch.densify_unpack` runs the
+  plain pair for CPU tensors.  Uncoded blocks of its coefficients are left
+  as `torch.empty` leaves them.  `densify_bound` gives the least bytes and
   time of a call.
 """
 
@@ -456,8 +466,122 @@ def synth_bound(s_n: int, steps: int, out: str = "u",
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+# parallel/batch.py unpack_blob_meta's tensors: (name, trailing shape).
+_META_SHAPES = (("nblocks", (6,)), ("intra_blk", (6,)), ("src_sel", ()),
+                ("mv_h", ()), ("mv_v", ()))
+_META_PICTURE = ("is_ref", "is_noop")
+_DENSIFY_FIELDS = ("flags", "mv_h", "mv_v", "nbcls", "mbmisc", "esc_didx",
+                   "esc_val")
+
+
+def _blob_rows(name, t, dev):
+    """A blob part as [S, bytes] rows: uint8 on `dev`, each row contiguous
+    and 4-byte aligned; returns (rows, row stride in bytes)."""
+    if t.dtype != torch.uint8 or t.dim() not in (1, 2) or t.device != dev:
+        raise ValueError(f"{name}: expected uint8 [bytes] or [S, bytes] on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    rows = t if t.dim() == 2 else t[None]
+    if rows.shape[1] and rows.stride(1) != 1:
+        raise ValueError(f"{name}: each row must be contiguous")
+    stride = rows.stride(0) if rows.shape[0] > 1 else 0
+    if stride % 4:
+        raise ValueError(f"{name}: K5 needs rows 4-byte apart (row stride "
+                         f"{stride})")
+    _check_aligned("K5", name, rows, 4)
+    return rows, stride
+
+
+def densify_unpack(meta_esc: torch.Tensor, main_rec: torch.Tensor,
+                   geom: FrameGeometry, window: int, offs: dict,
+                   premult: torch.Tensor, nb_class_rep: torch.Tensor):
+    """K5 over S streams' window blobs on the card (the function of
+    `parallel.batch.densify_split` + `unpack_blob_meta` a stream).
+
+    meta_esc: uint8 [split] (one blob's fixed prefix) or [S, split] (S
+    prefixes, rows 4-byte apart, e.g. a view of a [S, bytes] stack);
+    main_rec: uint8 [4 kt] or [S, 4 kt], each stream's main records (any
+    bucketed prefix of its lane); `offs` the blob's `blob_layout` offsets;
+    premult int32 [64] and nb_class_rep int32 [4] on the same device.
+    Each stream's chains start at 0.  Returns (coeffs int32 [S * window,
+    mb, 6, 64], meta): meta as `unpack_blob_meta` gives it, with S *
+    window pictures, stream s's at [s * window, (s + 1) * window).  Only
+    coded blocks (nblocks > 0) of coeffs are written.  Two launches, both
+    counted in `densify_unpack.launches`."""
+    from . import _build
+
+    dev = meta_esc.device
+    if dev.type != "cuda":
+        raise ValueError(f"K5 takes CUDA tensors, got {dev} (the plain "
+                         f"version is parallel.batch.densify_unpack's)")
+    metas, meta_stride = _blob_rows("meta_esc", meta_esc, dev)
+    mains, main_stride = _blob_rows("main_rec", main_rec, dev)
+    s_n, mb = metas.shape[0], geom.mb_size
+    if mains.shape[0] != s_n or main_rec.dim() != meta_esc.dim():
+        raise ValueError(f"meta_esc {tuple(meta_esc.shape)} and main_rec "
+                         f"{tuple(main_rec.shape)} hold different streams")
+    if not 0 < s_n <= _MAX_STREAMS:
+        raise ValueError(f"1 to {_MAX_STREAMS} streams, got {s_n}")
+    if metas.shape[1] != offs["main_rec"][0]:
+        raise ValueError(f"meta_esc: rows of {offs['main_rec'][0]} bytes "
+                         f"(the blob's prefix), got {metas.shape[1]}")
+    if mains.shape[1] % 4:
+        raise ValueError(f"main_rec: whole 4-byte records, got "
+                         f"{mains.shape[1]} bytes")
+    n = window * mb * 6 * 64
+    if n >= 2 ** 31:
+        raise ValueError(f"window dense span {n} overflows int32")
+    _check_int32("premult", premult, (64,), dev)
+    _check_int32("nb_class_rep", nb_class_rep, (4,), dev)
+    pics = s_n * window
+    coeffs = torch.empty((pics, mb, 6, 64), dtype=torch.int32, device=dev)
+    meta = {name: torch.empty((pics, mb, *shape), dtype=torch.int32,
+                              device=dev) for name, shape in _META_SHAPES}
+    meta.update({name: torch.empty(pics, dtype=torch.int32, device=dev)
+                 for name in _META_PICTURE})
+    kt, ke = mains.shape[1] // 4, offs["esc_val"][1] // 4
+    lib = _build.load("densify")
+    words = lib.mt_densify_scratch_words(s_n, kt, ke)
+    sums = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    args = _build.DensifyArgs(
+        meta=metas.data_ptr(), main=mains.data_ptr(),
+        meta_stride=meta_stride, main_stride=main_stride,
+        premult=premult.data_ptr(), nb_class_rep=nb_class_rep.data_ptr(),
+        coeffs=coeffs.data_ptr(), sums=sums.data_ptr(), streams=s_n,
+        window=window, mb=mb, kt=kt, ke=ke,
+        **{name: t.data_ptr() for name, t in meta.items()},
+        **{f"off_{name}": offs[name][0] for name in _DENSIFY_FIELDS})
+    with torch.cuda.device(dev):
+        code = lib.mt_densify_unpack(args, _stream(dev))
+    densify_unpack.launches += 2 if words else 1
+    _build.check(code, "densify_unpack", "densify")
+    return coeffs, meta
+
+
+densify_unpack.launches = 0
+
+
+def densify_bound(nblocks: torch.Tensor, records: int, escapes: int) -> dict:
+    """The least device-memory traffic of one K5 call, each input byte
+    read once and each output byte written once: `records` main records
+    (4 B each) and `escapes` escape records (6 B: a uint16 delta and an
+    int32 value) read over all streams; the blob's metadata read (4 B of
+    flags a picture; mv_h, mv_v, nbcls and mbmisc, 7 B a macroblock); the
+    unpacked metadata written (8 B a picture: is_ref, is_noop; 60 B a
+    macroblock: nblocks, intra_blk, src_sel, mv_h, mv_v); and 256 B of
+    coefficients a coded block (nblocks > 0), which the scatter's adds
+    land in.  `nblocks` is the call's int32 [P, mb, 6] over all its
+    pictures.  A few integer operations a byte: bytes bound it.  Returns
+    {"bytes", "us"}, "us" the bytes over `HBM_BYTES_PER_S`."""
+    pictures, mb = nblocks.shape[0], nblocks.shape[1]
+    nbytes = (4 * records + 6 * escapes + pictures * (4 + 8)
+              + pictures * mb * (7 + 60) + 256 * int((nblocks > 0).sum()))
+    return {"bytes": nbytes, "us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
+    densify_unpack.launches = 0
     idct_batch.launches = 0
     reconstruct_picture.launches = 0
     reconstruct_picture_multi.launches = 0

@@ -6,11 +6,14 @@ copy of the JAX package's: the window-blob ABI (`blob_layout`,
 `BatchVideoDecoder` the native and Python parse, the blob free list,
 prefetch, streaming `feed` and `at_time`.  Per window the device runs:
 
-1. `densify_split`: the blob's delta-coded coefficient records become the
-   dense int32 [window*mb*6*64] tensor (cumsum of the u16 deltas, times
-   the position's premultiplier, integer `index_add_` — order-independent,
-   so deterministic on the card too);
-2. `unpack_blob_meta`: motion vectors, IDCT classes, intra bits, src_sel;
+1-2. `densify_unpack`: the blob's delta-coded coefficient records become
+   the dense int32 [window, mb, 6, 64] coefficients (cumsum of the u16
+   deltas, times the position's premultiplier, an integer scatter-add —
+   order-independent, so deterministic on the card too), and its prefix
+   the motion vectors, IDCT classes, intra bits and src_sel.  On the card
+   that is K5 (`ops.cuda_kernels.densify_unpack`, two launches, only the
+   coded blocks written); on the CPU the plain pair `densify_split` +
+   `unpack_blob_meta`;
 3. one reconstruct per picture (`ops.cuda_kernels.reconstruct_picture`:
    the fused CUDA kernel for CUDA tensors, the plain version on the CPU);
 4. frame rotation.  The host knows every picture's type from the blob's
@@ -391,7 +394,9 @@ def densify_split(meta_esc: torch.Tensor, main_rec_bytes: torch.Tensor,
     is one little-endian int32: the low 16 bits the index delta, the high
     16 the int16 quotient.  Decoded indices clamp to the last slot, as in
     the reference (insurance against malformed chains).  `premult` is
-    `PREMULTIPLIER_MATRIX` as int32 on the blob's device."""
+    `PREMULTIPLIER_MATRIX` as int32 on the blob's device.  With
+    `unpack_blob_meta` this is the plain version of K5: `densify_unpack`
+    runs the pair for CPU tensors only."""
     n = window * geom.mb_size * 6 * 64
     if n >= 2 ** 31:
         raise ValueError(f"window dense span {n} overflows int32")
@@ -442,6 +447,50 @@ def unpack_blob_meta(blob: torch.Tensor, geom: FrameGeometry, window: int,
     }
 
 
+def densify_unpack_plain(meta_esc: torch.Tensor, main_rec: torch.Tensor,
+                         geom: FrameGeometry, window: int, km: int, ke: int,
+                         premult: torch.Tensor, nb_class_rep: torch.Tensor):
+    """`densify_unpack` by the plain pair, a stream at a time, on any
+    device: every block of the coefficients is written (the span is
+    zero-filled)."""
+    stack = meta_esc.dim() == 2
+    parts = []
+    for meta, main in zip(meta_esc if stack else [meta_esc],
+                          main_rec if stack else [main_rec]):
+        coeffs = densify_split(meta, main, geom, window, ke, premult)
+        parts.append((coeffs.view(window, geom.mb_size, 6, 64),
+                      unpack_blob_meta(meta, geom, window, km, ke,
+                                       nb_class_rep)))
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([c for c, _ in parts]),
+            {k: torch.cat([m[k] for _, m in parts]) for k in parts[0][1]})
+
+
+def densify_unpack(meta_esc: torch.Tensor, main_rec: torch.Tensor,
+                   geom: FrameGeometry, window: int, km: int, ke: int,
+                   premult: torch.Tensor, nb_class_rep: torch.Tensor):
+    """A window's plan tensors from its blob, or from S streams' blobs:
+    (coeffs int32 [P, mb, 6, 64], meta), meta as `unpack_blob_meta`
+    gives it, P = S * window pictures, stream s's at [s * window,
+    (s + 1) * window).
+
+    meta_esc: uint8 [split], one blob's fixed prefix, or [S, split], S
+    streams' prefixes (e.g. `blobs[:, :split]` of a [S, bytes] stack);
+    main_rec: uint8 [4 kt] or [S, 4 kt], each stream's main records (a
+    bucketed prefix of its lane: the tail is zero records).  Each
+    stream's delta chains start at 0.  For CPU tensors this is the plain
+    pair (`densify_unpack_plain`); for CUDA tensors it launches K5
+    (`cuda_kernels.densify_unpack`) or raises, and only the coded blocks
+    (nblocks > 0) of coeffs are written: K1 and K3 read no others."""
+    if cuda_kernels._device_kind(meta_esc) == "cpu":
+        return densify_unpack_plain(meta_esc, main_rec, geom, window, km, ke,
+                                    premult, nb_class_rep)
+    return cuda_kernels.densify_unpack(
+        meta_esc, main_rec, geom, window, blob_layout(geom, window, km, ke)[0],
+        premult, nb_class_rep)
+
+
 class WindowDecoder(nn.Module):
     """Decode one window blob (reference: batch.py make_blob_scan_decoder
     with make_scan_step): (carry, meta_esc, main_part, flags) ->
@@ -473,13 +522,11 @@ class WindowDecoder(nn.Module):
             _NB_CLASS_REP, dtype=torch.int32), persistent=False)
 
     def forward(self, carry, meta_esc, main_part, flags):
-        geom, window, mb = self.geom, self.window, self.geom.mb_size
-        coeffs = densify_split(meta_esc, main_part, geom, window, self.ke,
-                               self.premult).view(window, mb, 6, 64)
-        meta = unpack_blob_meta(meta_esc, geom, window, self.km, self.ke,
-                                self.nb_class_rep)
+        coeffs, meta = densify_unpack(meta_esc, main_part, self.geom,
+                                      self.window, self.km, self.ke,
+                                      self.premult, self.nb_class_rep)
         plan = [coeffs, *(meta[k] for k in _PLAN_FIELDS)]
-        return _run_window_steps(carry, plan, flags, geom, self.recon,
+        return _run_window_steps(carry, plan, flags, self.geom, self.recon,
                                 self.emit_rgba)
 
 
@@ -562,11 +609,11 @@ class PictureBlobRecon(nn.Module):
     """One picture from a one-picture window blob (reference: batch.py
     make_picture_blob_recon): the interactive decode's transport (`Video`,
     `MPEG`).  The blob's fixed prefix and a power-of-two bucket of its
-    filled main records go to the device in one copy, then densify,
-    unpack and one K1 launch (`cuda_kernels.reconstruct_picture`; the
-    plain version on the CPU): (cur, fwd, bwd, blob, fill) -> a new flat
-    frame.  A 1080p picture ships ~0.1 MB instead of the 12.5 MB dense
-    coefficient tensor."""
+    filled main records go to the device in one copy, then
+    `densify_unpack` (K5's two launches on the card) and one K1 launch
+    (`cuda_kernels.reconstruct_picture`; the plain versions on the CPU):
+    (cur, fwd, bwd, blob, fill) -> a new flat frame.  A 1080p picture
+    ships ~0.1 MB instead of the 12.5 MB dense coefficient tensor."""
 
     def __init__(self, geom: FrameGeometry, km: int, ke: int):
         super().__init__()
@@ -584,14 +631,12 @@ class PictureBlobRecon(nn.Module):
         kt = min(pool_bucket(max(nm, 1), _MIN_KM), self.km)
         dev_blob = torch.from_numpy(blob[:self.split + 4 * kt]).to(
             cur.device, copy=True)
-        meta_esc = dev_blob[:self.split]
-        coeffs = densify_split(meta_esc, dev_blob[self.split:], geom, 1,
-                               self.ke, self.premult)
-        meta = unpack_blob_meta(meta_esc, geom, 1, self.km, self.ke,
-                                self.nb_class_rep)
+        coeffs, meta = densify_unpack(
+            dev_blob[:self.split], dev_blob[self.split:], geom, 1, self.km,
+            self.ke, self.premult, self.nb_class_rep)
         return cuda_kernels.reconstruct_picture(
-            cur, fwd, bwd, coeffs.view(geom.mb_size, 6, 64),
-            *(meta[k][0] for k in _PLAN_FIELDS), geom)
+            cur, fwd, bwd, coeffs[0], *(meta[k][0] for k in _PLAN_FIELDS),
+            geom)
 
 
 def carry_from_numpy(frames, device="cuda") -> tuple:

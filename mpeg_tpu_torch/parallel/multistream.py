@@ -7,9 +7,9 @@ disjoint picture slots of one logical S*window-picture window blob, the
 recycled host slots (`_Slot`), the prefetch thread, the per-stream
 reference delay and end-of-stream flush.  Per round the device runs:
 
-1. one `densify_split` over all S*window pictures (the delta chain runs
-   across stream boundaries);
-2. one `unpack_blob_meta`;
+1-2. one `densify_unpack` over all S*window pictures (the delta chain
+   runs across stream boundaries, so the global window is one stream to
+   it): K5's two launches on the card;
 3. per time step t, one stream-batched K1 launch
    (`ops.cuda_kernels.reconstruct_pictures`) over every stream, or one
    per chunk of S/chunks streams: the JAX version's `lax.map` over a
@@ -40,7 +40,7 @@ from ..ops.video_recon import FrameGeometry
 from ..tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
 from .batch import (
     _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, blob_split,
-    densify_split, pool_bucket, split_views, unpack_blob_meta,
+    densify_unpack, pool_bucket, split_views,
 )
 
 _SLOTS = 4   # pool frames a stream: current, forward, backward, free
@@ -111,12 +111,10 @@ class GlobalWindowDecoder(nn.Module):
         return table, disp, slots
 
     def forward(self, carry, meta_esc, main_part, flags):
-        geom, mb = self.geom, self.geom.mb_size
-        gw = self.n * self.window
-        coeffs = densify_split(meta_esc, main_part, geom, gw, self.keg,
-                               self.premult).view(gw, mb, 6, 64)
-        meta = unpack_blob_meta(meta_esc, geom, gw, self.kmg, self.keg,
-                                self.nb_class_rep)
+        coeffs, meta = densify_unpack(meta_esc, main_part, self.geom,
+                                      self.n * self.window, self.kmg,
+                                      self.keg, self.premult,
+                                      self.nb_class_rep)
         return self.reconstruct(
             carry, [coeffs, *(meta[k] for k in _PLAN_FIELDS)], flags)
 

@@ -37,7 +37,7 @@ from ..ops.cuda_kernels import synthesize
 from ..ops.video_recon import FrameGeometry
 from .batch import (
     _PLAN_FIELDS, DenseWindowDecoder, blob_layout, blob_split,
-    densify_split, pack_plans_blob, stack_plans, unpack_blob_meta,
+    densify_unpack, pack_plans_blob, stack_plans,
 )
 from .multistream import GlobalWindowDecoder
 
@@ -124,28 +124,21 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
     stream (int64, summed over the process group).
 
     Each shard copies its blobs to its device in one copy, densifies and
-    unpacks each stream (`densify_split`, `unpack_blob_meta`), then runs
-    one stream-batched K1 launch a step over its streams
+    unpacks all its streams in one `densify_unpack` (K5's two launches on
+    the card), then runs one stream-batched K1 launch a step over its
+    streams
     (`GlobalWindowDecoder.reconstruct`: a frame pool of four frames a
     stream and a slot table rotated on the host)."""
     offs, total = blob_layout(geom, window, km, ke)
     split = blob_split(geom, window, km, ke)
     flags_off = offs["flags"][0]
-    mb = geom.mb_size
     shards = {}   # (device, streams) -> GlobalWindowDecoder
 
     def decode_shard(dec, carry_d, dev_blobs, flags):
-        s_d = dev_blobs.shape[0]
-        parts = []
-        for s in range(s_d):
-            meta_esc = dev_blobs[s, :split]
-            coeffs = densify_split(meta_esc, dev_blobs[s, split:], geom,
-                                   window, ke, dec.premult)
-            meta = unpack_blob_meta(meta_esc, geom, window, km, ke,
-                                    dec.nb_class_rep)
-            parts.append([coeffs.view(window, mb, 6, 64),
-                          *(meta[k] for k in _PLAN_FIELDS)])
-        plan = [torch.cat(p) for p in zip(*parts)]
+        coeffs, meta = densify_unpack(
+            dev_blobs[:, :split], dev_blobs[:, split:], geom, window, km, ke,
+            dec.premult, dec.nb_class_rep)
+        plan = [coeffs, *(meta[k] for k in _PLAN_FIELDS)]
         return _pooled_window(dec, carry_d, plan, flags)
 
     def decode(carry, blobs):
