@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`mpeg_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
-                          [--synth-baseline SYNTH_CU] [--parent-tree DIR]
+                          [--synth-baseline SYNTH_CU]
+                          [--densify-baseline DENSIFY_CU] [--parent-tree DIR]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
 (recon.cu, synth.cu and densify.cu, each its own library, and the C++
@@ -20,8 +21,10 @@ floor; and K5, the window densify and metadata unpack (`k5`), bit for
 bit on every coded block and metadata tensor at the main path's shapes
 (the 1080p fixture's window of 16, two rounds of the 64-stream decode at
 window 2, the 8-stream shard at window 16, a one-picture blob, malformed
-chains), timed beside its bound and its plain version; then drives every
-path of the port and checks its output:
+chains), `DENSIFY_LAUNCHES` launches a call (as the library reports them
+and as torch.profiler sees them), timed beside its bound and its plain
+version; then drives every path
+of the port and checks its output:
 
 - `golden`: the fixtures through `BatchVideoDecoder(window=16,
   device="cuda")` against their golden hashes;
@@ -72,13 +75,21 @@ another copy of `synth.cu` with K4's flags, holds its outputs and states
 equal to this K4's on ragged calls and on the timed inputs, and times the
 two in turns (baseline, this, this, baseline, twice) a frame, a window
 (f32 and s16) and 8 streams' windows.
+`--densify-baseline` (which may be repeated) likewise builds K5 from
+another copy of `densify.cu` with K5's flags, through that copy's own
+struct size and scratch function, holds its coded blocks and metadata
+equal to this K5's at every `k5` shape and times the two in turns
+(baseline, this, this, baseline, twice) at each.
 
 Timing: a kernel's `ms` is card time by CUDA events (`queued_ms`); a
 plain version's `plain_ms` is the wall of back-to-back calls by CUDA
 events (`cuda_ms`), its own host waits included.  K4's plain version (a
 few hundred plain torch launches a call) is also timed on the card by
 CUDA events around CUDA-graph replays (`graph_ms`).  torch.profiler only
-measures the profiled decode passes' idle share.
+measures the profiled decode passes' idle share and kernel time by name,
+and K5's kernels a call; its device time of K5's launches B and C, which
+start early (programmatic dependent launch), includes their waits for the
+launch before, so it is reported as such and compared with nothing.
 
 Each path's kernel launch counts (the wrappers' counters) are set to 0
 just before it runs and read just after; the MP2 paths also fail if the
@@ -174,6 +185,28 @@ def queued_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int) -> float:
+    """Median microseconds of host time one call of `fn` takes to return
+    while a spin kernel holds the card, so that no call waits for it: its
+    checks, allocations and launches on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * host_s * iters + 2e-3) * 2e9))
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -693,7 +726,8 @@ def _k5_inputs(dev) -> dict:
     first window of 8 streams at window 16, a [8, bytes] stack at common
     buckets, as the sharded decoder gets it; the fixture's first picture
     as a one-picture blob, as `PictureBlobRecon` gets it; and a malformed
-    64x48 blob whose main chain wraps negative (every delta 0xFFFF)."""
+    64x48 blob whose main chain wraps negative (every delta 0xFFFF), past
+    2^31 between two record tiles, and the same past it inside one."""
     import numpy as np
     import torch
 
@@ -747,20 +781,37 @@ def _k5_inputs(dev) -> dict:
     v["esc_val"][:] = 7
     v["nbcls"][:] = 0x0FFF            # every block coded
     split = blob_split(small, 2, km, ke)
-    blob = torch.from_numpy(blob).to(dev)
-    out["malformed_wrapping"] = (blob[:split], blob[split:], small, 2, km, ke)
+    out["malformed_wrapping"] = (torch.from_numpy(blob[:split]).to(dev),
+                                 torch.from_numpy(blob[split:]).to(dev),
+                                 small, 2, km, ke)
+    # The same with a first delta of 0x7FFF: the chain passes 2^31 inside
+    # a record tile, not between two.
+    v["main_rec"][0] = 0x7FFF
+    out["malformed_straddling"] = (torch.from_numpy(blob[:split]).to(dev),
+                                   torch.from_numpy(blob[split:]).to(dev),
+                                   small, 2, km, ke)
     return out
 
 
-def phase_k5() -> dict:
+def phase_k5(baselines=(), variants=()) -> dict:
     """K5 against its plain version on the card at the main path's shapes
     (`_k5_inputs`): every coded block's coefficients and every metadata
     tensor bit for bit, K5's outputs allocated on memory left full of
-    junk; then K5 by `queued_ms`, the plain pair by `cuda_ms` and its aten
-    ops (`count_launches`), beside `densify_bound`."""
+    junk, `DENSIFY_LAUNCHES` launches a call as the library reports them
+    (`launches_a_call`) and as torch.profiler records them
+    (`_k5_profiled`); then K5 by `queued_ms`, the plain pair by `cuda_ms`
+    and its aten ops (`count_launches`), beside `densify_bound`.
+
+    Each source of `baselines` (another densify.cu, e.g. an earlier
+    commit's) is built with K5's flags, held equal to this K5 on every
+    shape and timed in turns with it (baseline, this, this, baseline,
+    twice; `turns`), each turn's host us a call (`host_us`) beside its card
+    time; each source of `variants` (a copy that computes only part of K5,
+    or another partition) is timed so without the check
+    (`variant_turns`)."""
     import torch
 
-    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.ops import _build, cuda_kernels
     from mpeg_tpu_torch.parallel import batch
     from mpeg_tpu_torch.tables import PREMULTIPLIER_MATRIX
 
@@ -768,7 +819,12 @@ def phase_k5() -> dict:
     premult = torch.tensor(PREMULTIPLIER_MATRIX, dtype=torch.int32,
                            device=dev)
     rep = torch.tensor(batch._NB_CLASS_REP, dtype=torch.int32, device=dev)
-    out = {"phase": "k5", "shapes": {}}
+    out = {"phase": "k5", "owner_macroblocks":
+               _build.load("densify").mt_densify_granule_mbs(),
+           "shapes": {}}
+    bases = {src: _densify_library(src) for src in baselines}
+    others = {src: _densify_library(src) for src in variants}
+    turns = {src: {} for src in (*baselines, *variants)}
     worst = 0
     for name, (meta, main, geom, window, km, ke) in _k5_inputs(dev).items():
         args = (meta, main, geom, window, km, ke, premult, rep)
@@ -782,29 +838,157 @@ def phase_k5() -> dict:
         coded = want_m["nblocks"] > 0
         err = _max_abs_err(got_c[coded], want_c[coded]) if coded.any() else 0
         worst = max(worst, err)
-        if launches != 2 or err or set(got_m) != set(want_m) or not all(
-                torch.equal(got_m[k], want_m[k]) for k in want_m):
+        if launches != cuda_kernels.DENSIFY_LAUNCHES or err or \
+                not _same_meta(got_m, want_m):
             fail(f"k5 differs from its plain version on {name} "
                  f"(max abs err {err}, {launches} launches)")
+        out["launches_a_call"] = launches
+        for src, base in bases.items():
+            base_c, base_m = base(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(base_c[coded], got_c[coded]) or \
+                    not _same_meta(base_m, got_m):
+                fail(f"baseline K5 {src} and this K5 differ on {name}")
+            del base_c
         streams = meta.shape[0] if meta.dim() == 2 else 1
         kt = main.shape[-1] // 4
         bound = cuda_kernels.densify_bound(want_m["nblocks"], streams * kt,
                                            streams * ke)
         del want_c, got_c
         iters = 20 if window * geom.mb_size > 100_000 else 100
+        k5 = lambda: batch.densify_unpack(*args)  # noqa: E731
         out["shapes"][name] = {
             "streams": streams, "pictures": streams * window,
             "main_records": streams * kt, "escape_records": streams * ke,
             "coded_blocks": int(coded.sum()), "max_abs_err": err,
-            "ms": queued_ms(lambda: batch.densify_unpack(*args), iters),
+            "ms": queued_ms(k5, iters),
             "plain_ms": cuda_ms(lambda: batch.densify_unpack_plain(*args),
                                 max(iters // 4, 5)),
             "plain_launches": count_launches(
                 lambda: batch.densify_unpack_plain(*args)),
-            "bound_ms": bound["us"] / 1e3, "bound_bytes": bound["bytes"]}
+            "bound_ms": bound["us"] / 1e3, "bound_bytes": bound["bytes"],
+            **_k5_profiled(k5)}
+        for src, base in (*bases.items(), *others.items()):
+            got = {"baseline": [], "this": []}
+            host = {"baseline": [], "this": []}
+            for _ in range(2):
+                for who in ("baseline", "this", "this", "baseline"):
+                    fn = (lambda: base(*args)) if who == "baseline" else k5
+                    got[who].append(queued_ms(fn, iters))
+                    host[who].append(host_us(fn, iters))
+            turns[src][name] = {
+                **{who: {"ms": statistics.median(v), "all_ms": v,
+                         "host_us": statistics.median(host[who]),
+                         "all_host_us": host[who]}
+                   for who, v in got.items()},
+                "bound_ms": bound["us"] / 1e3}
     out["max_abs_err"] = worst
+    if baselines:
+        out["turns"] = {src: {"equal": True, **turns[src],
+                              "ptxas": bases[src].ptxas}
+                        for src in baselines}
+    if variants:
+        out["variant_turns"] = {src: {**turns[src],
+                                      "ptxas": others[src].ptxas}
+                                for src in variants}
     emit(out)
     return out
+
+
+def _same_meta(got: dict, want: dict) -> bool:
+    import torch
+
+    return set(got) == set(want) and all(torch.equal(got[k], want[k])
+                                          for k in want)
+
+
+def _densify_library(source: str):
+    """A densify.cu copy (e.g. an earlier commit's) built with K5's flags
+    into a library of its own, as a function of `batch.densify_unpack`'s
+    arguments that calls it as this K5's wrapper calls this K5 (its launch
+    counts nothing) through its own struct size and scratch function:
+    five arguments, or (S, kt, ke) in a copy without
+    `mt_densify_granule_mbs`, whose `mt_densify_unpack` also reports its
+    launches.  Its `ptxas` holds the compiler's lines."""
+    import ctypes
+
+    from mpeg_tpu_torch.ops import _build, cuda_kernels
+    from mpeg_tpu_torch.parallel.batch import blob_layout
+
+    so, log = _build.build(os.path.abspath(source),
+                           _build.nvcc_flags("densify"))
+    lib = ctypes.CDLL(so)
+    lib.mt_densify_args_bytes.restype = ctypes.c_int
+    if lib.mt_densify_args_bytes() != ctypes.sizeof(_build.DensifyArgs):
+        fail(f"baseline K5 {source}: MtDensifyArgs of "
+             f"{lib.mt_densify_args_bytes()} bytes, DensifyArgs "
+             f"{ctypes.sizeof(_build.DensifyArgs)}")
+    words = lib.mt_densify_scratch_words
+    rows = hasattr(lib, "mt_densify_granule_mbs")
+    words.argtypes = [ctypes.c_int] * (5 if rows else 3)
+    words.restype = ctypes.c_longlong
+    lib.mt_densify_unpack.argtypes = [
+        ctypes.POINTER(_build.DensifyArgs), ctypes.c_void_p,
+        *([ctypes.POINTER(ctypes.c_int)] if rows else [])]
+    lib.mt_densify_unpack.restype = ctypes.c_int
+    launched = ctypes.c_int(0)
+
+    def scratch_words(s_n, window, mb, kt, ke):
+        return words(s_n, window, mb, kt, ke) if rows else words(s_n, kt, ke)
+
+    def unpack(args, stream):
+        more = (ctypes.byref(launched),) if rows else ()
+        return lib.mt_densify_unpack(args, stream, *more)
+
+    def run(meta, main, geom, window, km, ke, premult, rep):
+        offs = blob_layout(geom, window, km, ke)[0]
+        code, coeffs, meta_out = cuda_kernels._densify_call(
+            unpack, scratch_words, meta, main, geom, window, offs, premult,
+            rep)
+        if code:
+            fail(f"baseline K5 {source}: CUDA error {code}")
+        return coeffs, meta_out
+
+    run.ptxas = _ptxas_lines(log)
+    return run
+
+
+def _k5_profiled(fn, calls: int = 5) -> dict:
+    """K5's kernels a call as torch.profiler records them over `calls`
+    calls of `fn` (`profiled_launches_a_call`: launch A
+    `densify_tiles_kernel`, B `densify_rows_kernel`, C
+    `densify_assemble_kernel`, each once a call), and each one's device us
+    a call (`profiled_us_with_waits`: B and C start early by programmatic
+    dependent launch, and their device time includes their waits for A's
+    and B's writes, so the three overstate K5's card time, which is
+    `ms`).  The counts are printed beside the library's, which the phase
+    checks: the profiler on the card's machine drops some records of short
+    launches.  "not measured" when it recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts, us = {}, {}
+    recorded = False
+    for k in prof.key_averages():
+        if k.device_type.name != "CUDA":
+            continue
+        recorded = True
+        name = _kernel_name(k.key).split("(")[0]
+        if name.startswith("densify_"):
+            counts[name] = counts.get(name, 0) + k.count / calls
+            us[name] = us.get(name, 0) + k.device_time_total / calls
+    if not recorded:
+        missing = "not measured: torch.profiler recorded no device activity"
+        return {"profiled_launches_a_call": missing,
+                "profiled_us_with_waits": missing}
+    return {"profiled_launches_a_call": counts, "profiled_us_with_waits": us}
 
 
 def _fixture_1080p() -> bytes:
@@ -1240,7 +1424,8 @@ def phase_e2e_1080p() -> dict:
     if launches["reconstruct_picture"] != pictures or pictures == 0:
         fail(f"K1 launched {launches['reconstruct_picture']} times for "
              f"{pictures} pictures")
-    if launches["densify_unpack"] != 2 * -(-pictures // 16):
+    if launches["densify_unpack"] != \
+            cuda_kernels.DENSIFY_LAUNCHES * -(-pictures // 16):
         fail(f"K5 launched {launches['densify_unpack']} times for "
              f"{pictures} pictures in windows of 16")
 
@@ -1283,6 +1468,13 @@ def phase_e2e_1080p() -> dict:
 K3_KERNELS = {"k3_luma": "PlaneSet<0, 1, false>",
               "k3_chroma": "PlaneSet<1, 3, false>",
               "k2": "idct_batch_kernel"}
+# K5's launches by name ("k5_with_waits": all of them, in any tree's
+# densify.cu).  Launches B and C start early (programmatic dependent
+# launch), and their device time includes their waits for the launch
+# before: the sums overstate K5's card time, which `queued_ms` takes.
+K5_KERNELS = {"k5_with_waits": "densify_", "k5_tiles": "densify_tiles_kernel",
+              "k5_rows_with_waits": "densify_rows_kernel",
+              "k5_assemble_with_waits": "densify_assemble_kernel"}
 
 
 def phase_recon_multi_1080p() -> dict:
@@ -1318,7 +1510,8 @@ def phase_recon_multi_1080p() -> dict:
     if len(frames) != 32 or launches != {
             "reconstruct_picture_multi": 2 * pictures,
             "idct_batch": pictures, "reconstruct_picture": 0,
-            "densify_unpack": 2 * -(-pictures // 16)}:
+            "densify_unpack":
+                cuda_kernels.DENSIFY_LAUNCHES * -(-pictures // 16)}:
         fail(f"K3 path: {len(frames)} frames, {pictures} pictures, "
              f"launches {launches}")
 
@@ -1435,7 +1628,8 @@ def phase_multistream_1080p() -> dict:
         fail(f"K1 launched {launches['reconstruct_picture']} times in "
              f"{rounds} rounds (bound {bound})")
     k5_rounds = -(-max(len(w) for w in want) // ms.window)
-    if launches["densify_unpack"] != 2 * k5_rounds:
+    if launches["densify_unpack"] != \
+            cuda_kernels.DENSIFY_LAUNCHES * k5_rounds:
         fail(f"K5 launched {launches['densify_unpack']} times in "
              f"{k5_rounds} rounds that hold pictures")
     del frames, want
@@ -1459,7 +1653,8 @@ def phase_multistream_1080p() -> dict:
                 "h2d_and_enqueue_s": stats.device_seconds})
     wall_median = statistics.median(p["wall_s"] for p in passes[False])
     profiled = profiled_pass(lambda: MultiStreamVideoDecoder(
-        streams, window=2, device="cuda").decode_all(), wall_median)
+        streams, window=2, device="cuda").decode_all(), wall_median,
+        K5_KERNELS)
     out = {"phase": "multistream_1080p", "card": gpu_name_and_power_limit(),
            "streams": N_STREAMS, "window": ms.window, "chunks": ms.chunks,
            "stream_pictures_kept": list(STREAM_CUTS), "rounds": rounds,
@@ -1773,7 +1968,7 @@ def phase_interactive_golden() -> dict:
                                   "k1_launches": launches,
                                   "k5_launches": k5}
         if got != GOLDEN_VIDEO or launches != _video_pictures(es) or \
-                k5 != 2 * launches:
+                k5 != cuda_kernels.DENSIFY_LAUNCHES * launches:
             fail(f"Video({parser}): {got[0]} frames, hash {got[1]:#018x}, "
                  f"K1 launched {launches} times, K5 {k5}")
 
@@ -1786,7 +1981,7 @@ def phase_interactive_golden() -> dict:
     out["mpeg_video"] = {"frames": got[0], "hash": f"{got[1]:#018x}",
                          "k1_launches": launches, "k5_launches": k5}
     if got != GOLDEN_PS or launches != _video_pictures(ps) or \
-            k5 != 2 * launches:
+            k5 != cuda_kernels.DENSIFY_LAUNCHES * launches:
         fail(f"MPEG.decode_video: {got[0]} frames, hash {got[1]:#018x}, "
              f"K1 launched {launches} times, K5 {k5}")
     m = MPEG(ps, device="cuda")
@@ -1885,7 +2080,7 @@ def phase_interactive_1080p() -> dict:
     if k4_launches != len(pcm):
         fail(f"interactive 1080p: K4 launched {k4_launches} times for "
              f"{len(pcm)} audio frames")
-    if k5_launches != 2 * pictures:
+    if k5_launches != cuda_kernels.DENSIFY_LAUNCHES * pictures:
         fail(f"interactive 1080p: K5 launched {k5_launches} times for "
              f"{pictures} pictures")
     if not pcm or len(pcm) != len(cpu_pcm) or \
@@ -2159,7 +2354,8 @@ def phase_sharded_1080p() -> dict:
         if not 0 < launches <= bound:
             fail(f"sharded ({name}): K1 launched {launches} times "
                  f"(bound {bound})")
-        if k5_launches != 2 * len(blobs) * len(mesh.devices):
+        if k5_launches != cuda_kernels.DENSIFY_LAUNCHES * len(blobs) * \
+                len(mesh.devices):
             fail(f"sharded ({name}): K5 launched {k5_launches} times for "
                  f"{len(blobs)} windows on {len(mesh.devices)} shards")
         n_frames = sum(len(f) for f in frames)
@@ -2178,7 +2374,8 @@ def phase_sharded_1080p() -> dict:
             "k1_launch_bound": bound, "peak_device_gib": peak_gib,
             "fps_median": n_frames / statistics.median(walls),
             "walls_s": walls,
-            "profiled_pass": profiled_pass(run, statistics.median(walls))}
+            "profiled_pass": profiled_pass(run, statistics.median(walls),
+                                           K5_KERNELS)}
 
     mp2 = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
     parser = NativeAudioParser(mp2)
@@ -2345,7 +2542,7 @@ def _rates(tree: str) -> dict:
         out = {"frames": frames[0], "walls_s": walls,
                "fps_median": frames[0] / wall, "peak_device_gib": max(peaks)}
         if profile:
-            out["profiled_pass"] = profiled_pass(run, wall)
+            out["profiled_pass"] = profiled_pass(run, wall, K5_KERNELS)
         return out
 
     def decode_audio():
@@ -2434,6 +2631,11 @@ def main() -> int:
                     help="also build K4 from this copy of synth.cu, hold "
                          "it equal to this K4 and time the two in turns "
                          "(may be repeated)")
+    ap.add_argument("--densify-baseline", metavar="DENSIFY_CU",
+                    action="append", default=[],
+                    help="also build K5 from this copy of densify.cu, hold "
+                         "it equal to this K5 and time the two in turns "
+                         "(may be repeated)")
     args = ap.parse_args()
 
     import torch
@@ -2456,7 +2658,7 @@ def main() -> int:
     parity = phase_kernel_parity(args.seed)
     k4 = phase_k4(args.seed, parity["launch_floor_ms"], args.synth_baseline)
     fixture = phase_k1_fixture(args.baseline)
-    k5 = phase_k5()
+    k5 = phase_k5(args.densify_baseline)
     with no_plain_densify():
         phase_golden()
         e2e = phase_e2e_1080p()
@@ -2577,9 +2779,11 @@ def main() -> int:
             library_note="none: no single PyTorch call computes the "
             "synthesis bit-exactly (a matmul reorders and contracts)"),
         # K5, the counterpart of the jitted densify and metadata unpack,
-        # not of a pallas_call: launches on the 64-stream path (two a
-        # round); `ms` a round of it (the first, I and P pictures), each
-        # shape of the `k5` phase in `shapes`.
+        # not of a pallas_call: launches on the 64-stream path
+        # (`launches_a_call` a round, as the library reported them in the
+        # `k5` phase); `ms` a round of it (the first, I and P pictures),
+        # each shape of the `k5` phase in `shapes`, `baseline_turns` the
+        # ms of each `--densify-baseline` and this K5 in turns a shape.
         row("densify_unpack", streams["launches"]["densify_unpack"],
             k5["max_abs_err"], k5["shapes"]["streams_64_round_0"]["ms"],
             k5["shapes"]["streams_64_round_0"]["plain_ms"],
@@ -2587,6 +2791,11 @@ def main() -> int:
             source="mpeg_tpu_torch/csrc/densify.cu",
             replaces="mpeg_tpu/parallel/batch.py:392",
             also_replaces=["mpeg_tpu/parallel/batch.py:460"],
+            launches_a_call=k5["launches_a_call"],
+            baseline_turns={src: {name: {who: t[name][who]["ms"]
+                                         for who in ("baseline", "this")}
+                                  for name in k5["shapes"]}
+                            for src, t in k5.get("turns", {}).items()},
             single_launches=e2e["launches"]["densify_unpack"],
             interactive_launches=interactive["k5_launches"],
             sharded_launches=sharded["meshes"]["card"]["k5_launches"],

@@ -130,7 +130,7 @@ class DensifyArgs(ctypes.Structure):
         ("meta_stride", ctypes.c_longlong), ("main_stride", ctypes.c_longlong),
     ] + [(name, ctypes.c_void_p) for name in (
         "premult", "nb_class_rep", "coeffs", "nblocks", "intra_blk",
-        "src_sel", "mv_h", "mv_v", "is_ref", "is_noop", "sums")] + [
+        "src_sel", "mv_h", "mv_v", "is_ref", "is_noop", "scratch")] + [
         (name, ctypes.c_int) for name in (
             "streams", "window", "mb", "kt", "ke", "off_flags", "off_mv_h",
             "off_mv_v", "off_nbcls", "off_mbmisc", "off_esc_didx",
@@ -148,10 +148,12 @@ def bind_densify(so: str) -> ctypes.CDLL:
         raise RuntimeError(
             f"densify.cu's MtDensifyArgs holds {lib.mt_densify_args_bytes()} "
             f"bytes, DensifyArgs {ctypes.sizeof(DensifyArgs)}")
-    lib.mt_densify_scratch_words.argtypes = [i32, i32, i32]
+    lib.mt_densify_scratch_words.argtypes = [i32] * 5
     lib.mt_densify_scratch_words.restype = ctypes.c_longlong
+    lib.mt_densify_granule_mbs.argtypes = []
+    lib.mt_densify_granule_mbs.restype = i32
     lib.mt_densify_unpack.argtypes = [ctypes.POINTER(DensifyArgs),
-                                      ctypes.c_void_p]
+                                      ctypes.c_void_p, ctypes.POINTER(i32)]
     lib.mt_densify_unpack.restype = i32
     return _bind_error_string(lib)
 

@@ -43,9 +43,10 @@ a run can show that its main path went through the kernel.
   allocates does).  `synth_bound` gives the least bytes, operations and
   time of a call.
 - `densify_unpack` (K5, csrc/densify.cu, a library of its own): S streams'
-  window blobs to their plan tensors in two launches: the coefficients of
-  every coded block (the blob's delta-coded records: prefix sum,
-  premultiply, scatter-add) and the seven metadata tensors.  Replaces the
+  window blobs to their plan tensors in `DENSIFY_LAUNCHES` (three)
+  launches: the coefficients of every coded block (the blob's delta-coded
+  records: prefix sum, premultiply, scatter-add), each assembled on chip
+  and written once, and the seven metadata tensors.  Replaces the
   jitted `densify_split_jax` and `unpack_blob_meta` (not `pallas_call`s).
   It takes CUDA tensors only: `parallel.batch.densify_unpack` runs the
   plain pair for CPU tensors.  Uncoded blocks of its coefficients are left
@@ -55,6 +56,7 @@ a run can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -492,6 +494,11 @@ def _blob_rows(name, t, dev):
     return rows, stride
 
 
+# K5's launches a call (csrc/densify.cu: A, the tile sums; B, the rows;
+# C, the assembly), whatever the call's shape.
+DENSIFY_LAUNCHES = 3
+
+
 def densify_unpack(meta_esc: torch.Tensor, main_rec: torch.Tensor,
                    geom: FrameGeometry, window: int, offs: dict,
                    premult: torch.Tensor, nb_class_rep: torch.Tensor):
@@ -506,14 +513,36 @@ def densify_unpack(meta_esc: torch.Tensor, main_rec: torch.Tensor,
     Each stream's chains start at 0.  Returns (coeffs int32 [S * window,
     mb, 6, 64], meta): meta as `unpack_blob_meta` gives it, with S *
     window pictures, stream s's at [s * window, (s + 1) * window).  Only
-    coded blocks (nblocks > 0) of coeffs are written.  Two launches, both
-    counted in `densify_unpack.launches`."""
+    coded blocks (nblocks > 0) of coeffs are written.  `DENSIFY_LAUNCHES`
+    launches; `densify_unpack.launches` adds the number that the library
+    says it enqueued."""
     from . import _build
 
     dev = meta_esc.device
     if dev.type != "cuda":
         raise ValueError(f"K5 takes CUDA tensors, got {dev} (the plain "
                          f"version is parallel.batch.densify_unpack's)")
+    lib = _build.load("densify")
+    launched = ctypes.c_int(0)
+    code, coeffs, meta = _densify_call(
+        lambda args, stream: lib.mt_densify_unpack(args, stream,
+                                                   ctypes.byref(launched)),
+        lib.mt_densify_scratch_words, meta_esc, main_rec, geom, window,
+        offs, premult, nb_class_rep)
+    densify_unpack.launches += launched.value
+    _build.check(code, "densify_unpack", "densify")
+    return coeffs, meta
+
+
+def _densify_call(unpack, scratch_words, meta_esc, main_rec, geom, window,
+                  offs, premult, nb_class_rep):
+    """`densify_unpack`'s checks, outputs and one call `unpack(args,
+    stream)` of a densify.cu library's `mt_densify_unpack` (this one, or an
+    earlier copy timed against it), its scratch `scratch_words(S, window,
+    mb, kt, ke)` int32; returns (error code, coeffs, meta)."""
+    from . import _build
+
+    dev = meta_esc.device
     metas, meta_stride = _blob_rows("meta_esc", meta_esc, dev)
     mains, main_stride = _blob_rows("main_rec", main_rec, dev)
     s_n, mb = metas.shape[0], geom.mb_size
@@ -540,22 +569,19 @@ def densify_unpack(meta_esc: torch.Tensor, main_rec: torch.Tensor,
     meta.update({name: torch.empty(pics, dtype=torch.int32, device=dev)
                  for name in _META_PICTURE})
     kt, ke = mains.shape[1] // 4, offs["esc_val"][1] // 4
-    lib = _build.load("densify")
-    words = lib.mt_densify_scratch_words(s_n, kt, ke)
-    sums = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(scratch_words(s_n, window, mb, kt, ke), 1),
+                          dtype=torch.int32, device=dev)
     args = _build.DensifyArgs(
         meta=metas.data_ptr(), main=mains.data_ptr(),
         meta_stride=meta_stride, main_stride=main_stride,
         premult=premult.data_ptr(), nb_class_rep=nb_class_rep.data_ptr(),
-        coeffs=coeffs.data_ptr(), sums=sums.data_ptr(), streams=s_n,
+        coeffs=coeffs.data_ptr(), scratch=scratch.data_ptr(), streams=s_n,
         window=window, mb=mb, kt=kt, ke=ke,
         **{name: t.data_ptr() for name, t in meta.items()},
         **{f"off_{name}": offs[name][0] for name in _DENSIFY_FIELDS})
     with torch.cuda.device(dev):
-        code = lib.mt_densify_unpack(args, _stream(dev))
-    densify_unpack.launches += 2 if words else 1
-    _build.check(code, "densify_unpack", "densify")
-    return coeffs, meta
+        code = unpack(args, _stream(dev))
+    return code, coeffs, meta
 
 
 densify_unpack.launches = 0
@@ -569,8 +595,8 @@ def densify_bound(nblocks: torch.Tensor, records: int, escapes: int) -> dict:
     flags a picture; mv_h, mv_v, nbcls and mbmisc, 7 B a macroblock); the
     unpacked metadata written (8 B a picture: is_ref, is_noop; 60 B a
     macroblock: nblocks, intra_blk, src_sel, mv_h, mv_v); and 256 B of
-    coefficients a coded block (nblocks > 0), which the scatter's adds
-    land in.  `nblocks` is the call's int32 [P, mb, 6] over all its
+    coefficients a coded block (nblocks > 0), which K5 writes once.
+    `nblocks` is the call's int32 [P, mb, 6] over all its
     pictures.  A few integer operations a byte: bytes bound it.  Returns
     {"bytes", "us"}, "us" the bytes over `HBM_BYTES_PER_S`."""
     pictures, mb = nblocks.shape[0], nblocks.shape[1]

@@ -11,7 +11,7 @@ prefetch, streaming `feed` and `at_time`.  Per window the device runs:
    deltas, times the position's premultiplier, an integer scatter-add —
    order-independent, so deterministic on the card too), and its prefix
    the motion vectors, IDCT classes, intra bits and src_sel.  On the card
-   that is K5 (`ops.cuda_kernels.densify_unpack`, two launches, only the
+   that is K5 (`ops.cuda_kernels.densify_unpack`, three launches, only the
    coded blocks written); on the CPU the plain pair `densify_split` +
    `unpack_blob_meta`;
 3. one reconstruct per picture (`ops.cuda_kernels.reconstruct_picture`:
@@ -610,7 +610,7 @@ class PictureBlobRecon(nn.Module):
     make_picture_blob_recon): the interactive decode's transport (`Video`,
     `MPEG`).  The blob's fixed prefix and a power-of-two bucket of its
     filled main records go to the device in one copy, then
-    `densify_unpack` (K5's two launches on the card) and one K1 launch
+    `densify_unpack` (K5's three launches on the card) and one K1 launch
     (`cuda_kernels.reconstruct_picture`; the plain versions on the CPU):
     (cur, fwd, bwd, blob, fill) -> a new flat frame.  A 1080p picture
     ships ~0.1 MB instead of the 12.5 MB dense coefficient tensor."""

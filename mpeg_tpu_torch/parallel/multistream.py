@@ -9,7 +9,7 @@ reference delay and end-of-stream flush.  Per round the device runs:
 
 1-2. one `densify_unpack` over all S*window pictures (the delta chain
    runs across stream boundaries, so the global window is one stream to
-   it): K5's two launches on the card;
+   it): K5's three launches on the card;
 3. per time step t, one stream-batched K1 launch
    (`ops.cuda_kernels.reconstruct_pictures`) over every stream, or one
    per chunk of S/chunks streams: the JAX version's `lax.map` over a

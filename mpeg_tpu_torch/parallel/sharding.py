@@ -124,8 +124,8 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
     stream (int64, summed over the process group).
 
     Each shard copies its blobs to its device in one copy, densifies and
-    unpacks all its streams in one `densify_unpack` (K5's two launches on
-    the card), then runs one stream-batched K1 launch a step over its
+    unpacks all its streams in one `densify_unpack` (K5's three launches
+    on the card), then runs one stream-batched K1 launch a step over its
     streams
     (`GlobalWindowDecoder.reconstruct`: a frame pool of four frames a
     stream and a slot table rotated on the host)."""

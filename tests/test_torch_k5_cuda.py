@@ -2,8 +2,10 @@
 plain version on the card: every coded block's coefficients and every
 metadata tensor of `parallel.batch.densify_unpack`, bit for bit, on native
 fixture blobs at windows 4 and 16, a stack of three streams, the
-hop-record blob and the malformed chains that wrap; K5's outputs start on
-memory left full of junk.  Also its refusals, its scratch size and its
+hop-record blob, the malformed chains (clamped, and wrapping between two
+record tiles and inside one), `_edge_blob`'s partition edges and a call
+of one sorted and one wrapping stream; K5's outputs start on memory left
+full of junk.  Also its refusals, its scratch size and its
 launches on the decoders' paths, with neither plain function run on a
 CUDA tensor.  Marked `cuda`: each test skips inside its body without a
 card (`python -m pytest --noconftest tests/test_torch_k5_cuda.py -q -m
@@ -81,15 +83,17 @@ def _common_stack(blobs, geom, window):
     return stack, km, ke
 
 
-def _malformed_blob(km):
-    """64x48 at window 2: every main record a 0xFFFF delta of quotient 3,
-    every escape a 0xFFFF delta of value 7; the metadata all zero."""
+def _malformed_blob(km, first=0xFFFF):
+    """64x48 at window 2: every main record a 0xFFFF delta of quotient 3
+    (the first one's delta `first`), every escape a 0xFFFF delta of value
+    7; the metadata all zero."""
     geom = FrameGeometry.for_size(64, 48)
     window, ke = 2, 64
     _, total = tb.blob_layout(geom, window, km, ke)
     blob = np.zeros(total, np.uint8)
     v = tb.blob_views(blob, geom, window, km, ke)
     v["main_rec"][0::2] = 0xFFFF
+    v["main_rec"][0] = first
     v["main_rec"].view(np.int16)[1::2] = 3
     v["esc_didx"][:] = 0xFFFF
     v["esc_val"][:] = 7
@@ -124,6 +128,47 @@ def _hop_plans(geom):
     return plans
 
 
+def _edge_plans(geom):
+    """An I and a P picture built so that K5's partition meets its edge
+    cases.  In the I picture macroblocks 0 and 2-12 are dense (every
+    coefficient a main record) and macroblock 1 between them has none;
+    block 0 of macroblock 0 stops at 37 coefficients, so that main record
+    4,096 (a record tile's first) falls at position 27 of block 5 of
+    macroblock 11; block 3 of macroblock 5 holds only escapes (values with
+    no exact int16 quotient).  The P picture has three sparse blocks whose
+    index gaps need hop records."""
+    from mpeg_tpu_torch.tables import (PICTURE_TYPE_INTRA,
+                                       PICTURE_TYPE_PREDICTIVE)
+    from mpeg_tpu_torch.video import _PicturePlan
+
+    mb = geom.mb_size
+    premult = np.asarray(PREMULTIPLIER_MATRIX, np.int32)
+    rng = np.random.default_rng(21)
+    i_pic, p_pic = _PicturePlan(mb), _PicturePlan(mb)
+    for m in [0, *range(2, 13)]:
+        q = rng.integers(1, 50, (6, 64)) * rng.choice([-1, 1], (6, 64))
+        i_pic.coeffs[m] = q * premult
+        i_pic.nblocks[m] = 64
+        i_pic.intra_blk[m] = 1
+    i_pic.coeffs[0, 0, 37:] = 0
+    i_pic.nblocks[0, 0] = 37
+    i_pic.coeffs[5, 3] = premult * rng.integers(1, 50, 64) + 1
+    for m, b, pos in [(mb // 2, 1, 0), (mb // 2, 1, 63), (mb - 1, 5, 10)]:
+        p_pic.coeffs[m, b, pos] = int(rng.integers(2, 60)) * premult[pos]
+        p_pic.nblocks[m, b] = pos + 1
+    return [(i_pic, PICTURE_TYPE_INTRA), (p_pic, PICTURE_TYPE_PREDICTIVE)]
+
+
+def _edge_blob():
+    """`_edge_plans` at 320x240, window 2, in buckets of 8,192 main and
+    128 escape records (both lanes end in pads): (geom, window, km, ke,
+    blob)."""
+    geom = FrameGeometry.for_size(320, 240)
+    window, km, ke = 2, 8192, 128
+    return geom, window, km, ke, tb.pack_plans_blob(_edge_plans(geom), geom,
+                                                    window, km, ke)
+
+
 def _card() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
@@ -148,7 +193,7 @@ def _k5_against_plain(dev, meta, main, geom, window, km, ke):
     before = ck.densify_unpack.launches
     got = tb.densify_unpack(meta, main, geom, window, km, ke, premult, rep)
     torch.cuda.synchronize()
-    assert ck.densify_unpack.launches == before + 2
+    assert ck.densify_unpack.launches == before + ck.DENSIFY_LAUNCHES
     _check_streams(got, [(want[0].cpu().numpy(),
                           {k: v.cpu().numpy() for k, v in want[1].items()})],
                    coded_only=True)
@@ -179,31 +224,74 @@ def test_k5_matches_plain_on_a_stack_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hops", "malformed_4096",
-                                  "malformed_65536"])
+                                  "malformed_65536", "malformed_straddle",
+                                  "edges", "edges_without_pads"])
 def test_k5_matches_plain_on_edge_chains_on_card(case):
+    """The hop chain, the malformed chains (one clamped onto the span's
+    last entry; two wrapping, past 2^31 between two record tiles and
+    inside one) and `_edge_blob` (a record tile's start inside a block, a
+    macroblock without records between two with some, a coded block of
+    escapes only), with its pads and cut to its fill."""
     dev = _card()
+    kt = None
     if case == "hops":
         geom = FrameGeometry.for_size(640, 480)
         window, km, ke = 2, 4096, 64
         blob = tb.pack_plans_blob(_hop_plans(geom), geom, window, km, ke)
+    elif case.startswith("edges"):
+        geom, window, km, ke, blob = _edge_blob()
+        if case == "edges_without_pads":
+            rec = tb.blob_views(blob, geom, window, km, ke)["main_rec"]
+            kt = int(np.flatnonzero(rec[1::2])[-1]) + 1
+    elif case == "malformed_straddle":
+        km = 65536
+        geom, window, ke, blob = _malformed_blob(km, first=0x7FFF)
     else:
         km = int(case.split("_")[1])
         geom, window, ke, blob = _malformed_blob(km)
-    _k5_against_plain(dev, *_split(blob, geom, window, km, ke), geom, window,
+    _k5_against_plain(dev, *_split(blob, geom, window, km, ke, kt), geom,
+                      window, km, ke)
+
+
+@pytest.mark.cuda
+def test_k5_matches_plain_on_a_sorted_and_a_wrapping_stream_on_card():
+    """One call of two streams at 65,536 main records: `_edge_plans`, and
+    a blob whose main chain wraps (every delta 0xFFFF, quotient 3) over
+    coded blocks, so that launch C takes each stream's own path."""
+    dev = _card()
+    geom = FrameGeometry.for_size(320, 240)
+    window, km, ke = 2, 65536, 128
+    stack = np.stack([tb.pack_plans_blob(_edge_plans(geom), geom, window,
+                                         km, ke),
+                      np.zeros(tb.blob_layout(geom, window, km, ke)[1],
+                               np.uint8)])
+    v = tb.blob_views(stack[1], geom, window, km, ke)
+    v["main_rec"][0::2] = 0xFFFF
+    v["main_rec"].view(np.int16)[1::2] = 3
+    v["nbcls"][:] = 0x0FFF                     # every block coded
+    split = tb.blob_split(geom, window, km, ke)
+    tstack = _t(stack).to(dev)
+    _k5_against_plain(dev, tstack[:, :split], tstack[:, split:], geom, window,
                       km, ke)
 
 
 @pytest.mark.cuda
 def test_k5_scratch_is_one_word_a_tile_on_card():
-    """The library's record tile is the mirror's: one scratch word a
-    4,096-record tile of each lane and stream."""
+    """The library's record tile and granule are the mirror's
+    (tests/test_torch_k5.py).  Its scratch holds, a stream: four words a
+    lane (the wrap flag and the tail), four a 4,096-record tile of each
+    lane (launch A's entry), and two a row of each lane, one a granule of
+    4 macroblocks and one more."""
     _card()
     from mpeg_tpu_torch.ops import _build
 
     lib = _build.load("densify")
-    assert lib.mt_densify_scratch_words(1, 4096, 64) == 2
-    assert lib.mt_densify_scratch_words(3, 4097, 8192) == 3 * (2 + 2)
-    assert lib.mt_densify_scratch_words(2, 0, 0) == 0
+    assert lib.mt_densify_scratch_words(1, 2, 3, 4096, 64) == \
+        8 + 4 * (1 + 1) + 4 * (2 + 1)
+    assert lib.mt_densify_scratch_words(3, 16, 8160, 4097, 8192) == \
+        3 * (8 + 4 * (2 + 2) + 4 * (32640 + 1))
+    assert lib.mt_densify_scratch_words(2, 1, 1, 0, 0) == 2 * (8 + 4 * 2)
+    assert lib.mt_densify_granule_mbs() == 4
 
 
 @pytest.mark.cuda
@@ -233,8 +321,9 @@ def test_k5_refuses_what_it_does_not_take_on_card():
 @pytest.mark.cuda
 def test_decoders_run_k5_and_never_the_plain_pair_on_card(monkeypatch):
     """BatchVideoDecoder, MultiStreamVideoDecoder, the sharded decoder and
-    Video launch K5 twice a window, round, shard or picture, and call
-    neither plain function on a CUDA tensor."""
+    Video launch K5 (`DENSIFY_LAUNCHES` launches) once a window, round,
+    shard or picture, and call neither plain function on a CUDA
+    tensor."""
     dev = _card()
     from mpeg_tpu_torch import Buffer, Video
     from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
@@ -257,12 +346,13 @@ def test_decoders_run_k5_and_never_the_plain_pair_on_card(monkeypatch):
     ck.reset_launches()
     dec = BatchVideoDecoder(es, window=16, device="cuda")
     dec.decode_all()
-    assert ck.densify_unpack.launches == 2 * -(-len(dec._types) // 16)
+    calls = ck.DENSIFY_LAUNCHES
+    assert ck.densify_unpack.launches == calls * -(-len(dec._types) // 16)
 
     ck.reset_launches()
     ms = MultiStreamVideoDecoder([es[:60000], es], window=4, device="cuda")
     ms.decode_all()
-    assert ck.densify_unpack.launches == 2 * -(-len(dec._types) // 4)
+    assert ck.densify_unpack.launches == calls * -(-len(dec._types) // 4)
 
     geom, blobs = _native_blobs(ES, 4, 2)
     stack, km, ke = _common_stack([b[:3] for b in blobs] * 2, geom, 4)
@@ -274,7 +364,7 @@ def test_decoders_run_k5_and_never_the_plain_pair_on_card(monkeypatch):
         decode(sh.zero_carry(geom, 4, mesh), stack)
         shards += len(mesh.devices)
     torch.cuda.synchronize()
-    assert ck.densify_unpack.launches == 2 * shards
+    assert ck.densify_unpack.launches == calls * shards
 
     buf = Buffer(io.BytesIO(es[:60000]))
     buf.set_load_callback(buf.load_reader_callback)
@@ -284,5 +374,5 @@ def test_decoders_run_k5_and_never_the_plain_pair_on_card(monkeypatch):
     while video.decode() is not None:
         n += 1
     assert n and ck.densify_unpack.launches == \
-        2 * ck.reconstruct_picture.launches
+        calls * ck.reconstruct_picture.launches
     assert not on_card, on_card
