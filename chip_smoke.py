@@ -26,8 +26,9 @@ and as torch.profiler sees them), timed beside its bound and its plain
 version; then drives every path
 of the port and checks its output:
 
-- `golden`: the fixtures through `BatchVideoDecoder(window=16,
-  device="cuda")` against their golden hashes;
+- `golden`: the fixtures and the custom-matrix ES through
+  `BatchVideoDecoder(window=16, device="cuda")`, prefetch off and on,
+  against their golden hashes;
 - `e2e_1080p`: the 1080p fixture against the C++ host decoder, timed;
 - `recon_multi_1080p`: the same with K3 (K2 + two plane launches) in
   K1's place, then timed and profiled (K3's device time a picture);
@@ -54,6 +55,16 @@ of the port and checks its output:
   on the card listed twice, every frame against the C++ host decoder and
   the int64 pixel count exact, timed; and the sharded MP2 synthesis
   (one K4 launch a shard) against the single-stream one and the golden;
+- `transport`: the window transport under an adversary that holds the
+  compute stream and the copy stream (`torch.cuda._sleep`) before every
+  window, round or call: the 1080p fixture (prefetch on), 8 lockstep
+  streams (prefetch on) and the sharded decode on the card listed twice
+  against the C++ host decoder; and one more step of each of the four
+  paths, with both streams held, returning while the held work pends;
+- `streams`: the custom-matrix ES on its golden through `Video` (both
+  parsers) and `MultiStreamVideoDecoder`, and the 8-frame 3840x2160 ES
+  through `BatchVideoDecoder(window=4)` and `MultiStreamVideoDecoder`
+  against the C++ host decoder;
 - `multihost`: `parallel.multihost.launch` as one NCCL process and as two
   gloo processes on the card, each on the golden;
 - `examples`: the seven `examples_torch/` scripts on the card, at once,
@@ -66,10 +77,10 @@ and K3 in turns (baseline, this, this, baseline) on the fixture's
 pictures, the adversarial plan and (K1) 64-stream launches.
 `--parent-tree DIR` (a checkout of another commit, e.g. the parent's
 unpacked by `git archive` into a git-ignored directory) times the
-end-to-end rates of that tree and of this one in turns (parent, this,
-this, parent; the 64-stream and sharded decodes also profiled), each
-turn a process of its own that imports the package from its tree
-(`--rates-of`).
+end-to-end rates of that tree and of this one in turns, in both orders
+(parent, this, this, parent, this, parent, parent, this; the 64-stream
+and sharded decodes also profiled), each turn a process of its own that
+imports the package from its tree (`--rates-of`).
 `--synth-baseline` (which may be repeated) likewise builds K4 from
 another copy of `synth.cu` with K4's flags, holds its outputs and states
 equal to this K4's on ragged calls and on the timed inputs, and times the
@@ -91,6 +102,11 @@ and K5's kernels a call; its device time of K5's launches B and C, which
 start early (programmatic dependent launch), includes their waits for the
 launch before, so it is reported as such and compared with nothing.
 
+The window transport's own count (`parallel.batch.transport_counts`:
+copies, those from pinned memory, bytes) is read on the single-stream,
+64-stream, sharded and interactive paths and must show every copy
+pinned; their profiled passes add the h2d copies' card time, rate and
+share under kernels, and the union busy time (`transport_summary`).
 Each path's kernel launch counts (the wrappers' counters) are set to 0
 just before it runs and read just after; the MP2 paths also fail if the
 plain filterbank sees a CUDA tensor, and the video paths if the plain
@@ -116,6 +132,9 @@ TESTDATA = os.path.join(REPO, "tests", "testdata")
 
 GOLDEN_VIDEO = (260, 0xEA6D7FCB1340BA3F)   # test.mpeg1video
 GOLDEN_PS = (278, 0xD00818EDCAFDC702)      # test.mpg (tests/test_torch_batch.py)
+# test_custom_matrix.m1v: tools/gen_custom_matrix.py's splice of
+# test.mpeg1video (tests/test_custom_matrix.py's golden)
+GOLDEN_CUSTOM = (260, 0x82A9768F1F2B499B)
 GOLDEN_AUDIO = (355, 0xF1B76CDF8E6CDEA5)   # test.mp2, the no-FMA golden
 # test.mpg's audio through MPEG.decode_audio, pinned from the JAX package's
 # MPEG(backend="numpy") by tests/test_torch_interactive.py.
@@ -745,8 +764,7 @@ def _k5_inputs(dev) -> dict:
         km, ke = dec._km, dec._ke
         split = blob_split(dec.geom, window, km, ke)
         kt = min(pool_bucket(max(fill[0], 1), _MIN_KM), km)
-        return (torch.from_numpy(blob[:split]).to(dev),
-                torch.from_numpy(blob[split:split + 4 * kt]).to(dev),
+        return (blob[:split].to(dev), blob[split:split + 4 * kt].to(dev),
                 dec.geom, window, km, ke)
 
     out = {"fixture_window_16": window_blob(16)}
@@ -1315,6 +1333,82 @@ def _kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "")
 
 
+def _transport_counts():
+    """This tree's transport counts (`parallel.batch.transport_counts`),
+    set to 0; None for a tree without them (a parent's, in turns)."""
+    from mpeg_tpu_torch.parallel import batch
+
+    if not hasattr(batch, "transport_counts"):
+        return None
+    batch.reset_transport_counts()
+    return batch.transport_counts
+
+
+def _counts(counts) -> dict:
+    return {"copies": counts.copies, "pinned_copies": counts.pinned_copies,
+            "bytes": counts.bytes}
+
+
+def check_transport(counts, what: str) -> dict:
+    """The transport's own count of a checked pass: every copy from
+    pinned memory, at least one copy."""
+    got = _counts(counts)
+    if got["copies"] == 0 or got["pinned_copies"] != got["copies"]:
+        fail(f"{what}: {got['copies']} copies, {got['pinned_copies']} "
+             "from pinned memory")
+    return got
+
+
+def _merged(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _timeline(prof, wall_median: float) -> dict:
+    """The profiled pass's device timeline (the profiler's per-launch and
+    per-copy records): the h2d copies' device us and how much of it ran
+    while a kernel ran, pinned and pageable copies as the records name
+    them and the pinned ones' device us, and the busy time as the union
+    of every record (a copy under a kernel counted once) with the idle
+    share against the unprofiled wall.  The profiler drops some records
+    (one copy of a sharded pass's eight, once): counts of copies come
+    from the transport."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    evs = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return {}
+    h2d = [(a, b, n) for a, b, n in evs if n.startswith("Memcpy HtoD")]
+    kernels = _merged((a, b) for a, b, n in evs
+                      if not n.startswith(("Memcpy", "Memset")))
+    starts = [a for a, _ in kernels]
+    overlap = 0.0
+    for a, b, _n in h2d:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(kernels) and kernels[i][0] < b:
+            overlap += max(0.0, min(b, kernels[i][1]) - max(a, kernels[i][0]))
+            i += 1
+    h2d_us = sum(b - a for a, b, _ in h2d)
+    busy = sum(b - a for a, b in _merged((a, b) for a, b, _ in evs))
+    return {"h2d_device_us": h2d_us, "h2d_records": len(h2d),
+            "h2d_pinned_us": sum(b - a for a, b, n in h2d if "Pinned" in n),
+            "h2d_pinned_records": sum("Pinned" in n for _, _, n in h2d),
+            "h2d_pageable_records": sum("Pageable" in n for _, _, n in h2d),
+            "h2d_under_kernels_us": overlap,
+            "h2d_under_kernels_share": overlap / h2d_us if h2d_us else None,
+            "device_busy_union_s": busy / 1e6,
+            "device_idle_share_union_unprofiled_wall":
+                1 - busy / 1e6 / wall_median}
+
+
 def profiled_pass(run, wall_median: float, kernels=None) -> dict:
     """One more pass of `run` under torch.profiler: how busy the card is
     and what fills it (rates are taken without the profiler).  The idle
@@ -1325,10 +1419,14 @@ def profiled_pass(run, wall_median: float, kernels=None) -> dict:
     and no idle share (its frames are checked elsewhere); `main` says so
     in its `idle_share` line.  `kernels` maps a label to a part of a
     kernel's name (spaces ignored): the pass adds up each label's device
-    us and launches."""
+    us and launches.  Also the h2d copies' device time, their overlap
+    with kernels and the union busy time (`_timeline`), and with this
+    tree's transport its own count of the pass and, where the profiler
+    recorded each of its copies, their rate over their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    counts = _transport_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1353,6 +1451,14 @@ def profiled_pass(run, wall_median: float, kernels=None) -> dict:
                 if part.replace(" ", "") in name.replace(" ", "")]
         out[f"{label}_device_us"] = sum(us for us, _ in hits)
         out[f"{label}_launches"] = sum(n for _, n in hits)
+    out.update(_timeline(prof, wall_median))
+    if counts is not None:
+        out["transport"] = _counts(counts)
+        # The rate only where the profiler recorded every copy of the
+        # transport (its records carry no byte counts on this torch).
+        if out.get("h2d_pinned_records") == counts.copies and \
+                out.get("h2d_pinned_us"):
+            out["h2d_gb_per_s"] = counts.bytes / out["h2d_pinned_us"] / 1e3
     return out
 
 
@@ -1380,18 +1486,25 @@ def _digest(frames, geom) -> int:
 
 
 def phase_golden() -> None:
+    """The goldens through `BatchVideoDecoder(window=16)`, with the parse
+    prefetch thread off and on."""
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
     for name, (frames_want, hash_want) in (
-            ("test.mpeg1video", GOLDEN_VIDEO), ("test.mpg", GOLDEN_PS)):
+            ("test.mpeg1video", GOLDEN_VIDEO), ("test.mpg", GOLDEN_PS),
+            ("test_custom_matrix.m1v", GOLDEN_CUSTOM)):
         data = open(os.path.join(TESTDATA, name), "rb").read()
-        dec = BatchVideoDecoder(data, window=16, device="cuda")
-        frames = dec.decode_all()
-        digest = _digest(frames, dec.geom)
-        emit({"phase": "golden", "input": name, "frames": len(frames),
-              "hash": f"{digest:#018x}", "want": f"{hash_want:#018x}"})
-        if len(frames) != frames_want or digest != hash_want:
-            fail(f"{name}: {len(frames)} frames, hash {digest:#018x}")
+        for prefetch in (False, True):
+            dec = BatchVideoDecoder(data, window=16, prefetch=prefetch,
+                                    device="cuda")
+            frames = dec.decode_all()
+            digest = _digest(frames, dec.geom)
+            emit({"phase": "golden", "input": name, "prefetch": prefetch,
+                  "frames": len(frames), "hash": f"{digest:#018x}",
+                  "want": f"{hash_want:#018x}"})
+            if len(frames) != frames_want or digest != hash_want:
+                fail(f"{name} (prefetch {prefetch}): {len(frames)} frames, "
+                     f"hash {digest:#018x}")
 
 
 def phase_e2e_1080p() -> dict:
@@ -1410,12 +1523,19 @@ def phase_e2e_1080p() -> dict:
     want = _native_frames(data)
 
     dec = BatchVideoDecoder(data, window=16, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts = _transport_counts()
     cuda_kernels.reset_launches()
     frames = dec.decode_all()
     torch.cuda.synchronize()
     launches = {"reconstruct_picture": cuda_kernels.reconstruct_picture
                 .launches, "idct_batch": cuda_kernels.idct_batch.launches,
                 "densify_unpack": cuda_kernels.densify_unpack.launches}
+    transport = check_transport(counts, "1080p")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = [b for _g, b, *_ in dec._blob_inflight] + \
+        [b for b, *_ in dec._blob_free]
+    pinned_bytes = sum(b.numel() for b in held if b.is_pinned())
     pictures = len(dec._types)
     fs = dec.geom.frame_size
     if len(want) != 32:
@@ -1454,6 +1574,8 @@ def phase_e2e_1080p() -> dict:
     out = {"phase": "e2e_1080p", "card": gpu_name_and_power_limit(),
            "frames": len(frames), "pictures": pictures,
            "equal_to_native_host_decoder": True, "launches": launches,
+           "transport": transport, "peak_device_gib": peak_gib,
+           "pinned_host_bytes_held": pinned_bytes,
            "fps_median": statistics.median(p["fps"] for p in passes[False]),
            "fps_median_prefetch": statistics.median(
                p["fps"] for p in passes[True]),
@@ -1544,8 +1666,9 @@ def phase_recon_multi_1080p() -> dict:
 
 def phase_multistream_golden() -> None:
     """tests/test_multistream.py's mixed sources in lockstep at window 4
-    on the card: each stream equal to the port's solo decoder on the
-    card, and the whole streams on their goldens."""
+    on the card, the parse prefetch thread off and on: each stream equal
+    to the port's solo decoder on the card, and the whole streams on
+    their goldens."""
     import torch
 
     from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
@@ -1554,20 +1677,26 @@ def phase_multistream_golden() -> None:
     es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
     ps = open(os.path.join(TESTDATA, "test.mpg"), "rb").read()
     sources = [es, ps, es[:len(es) // 3], es]
-    ms = MultiStreamVideoDecoder(sources, window=4, device="cuda")
-    got = ms.decode_all()
-    fs = ms.geom.frame_size
-    for s, data in enumerate(sources):
-        solo = BatchVideoDecoder(data, window=4, device="cuda").decode_all()
-        if len(got[s]) != len(solo) or not all(
-                torch.equal(a[:fs], b[:fs]) for a, b in zip(got[s], solo)):
-            fail(f"multistream stream {s} differs from its solo decode")
-    hashes = [_digest(g, ms.geom) for g in got]
-    for s, (frames_want, hash_want) in ((0, GOLDEN_VIDEO), (1, GOLDEN_PS),
-                                        (3, GOLDEN_VIDEO)):
-        if (len(got[s]), hashes[s]) != (frames_want, hash_want):
-            fail(f"multistream stream {s}: {len(got[s])} frames, hash "
-                 f"{hashes[s]:#018x}")
+    solos = [BatchVideoDecoder(data, window=4, device="cuda").decode_all()
+             for data in sources]
+    for prefetch in (False, True):
+        ms = MultiStreamVideoDecoder(sources, window=4, prefetch=prefetch,
+                                     device="cuda")
+        got = ms.decode_all()
+        fs = ms.geom.frame_size
+        for s, solo in enumerate(solos):
+            if len(got[s]) != len(solo) or not all(
+                    torch.equal(a[:fs], b[:fs])
+                    for a, b in zip(got[s], solo)):
+                fail(f"multistream stream {s} (prefetch {prefetch}) "
+                     "differs from its solo decode")
+        hashes = [_digest(g, ms.geom) for g in got]
+        for s, (frames_want, hash_want) in ((0, GOLDEN_VIDEO),
+                                            (1, GOLDEN_PS),
+                                            (3, GOLDEN_VIDEO)):
+            if (len(got[s]), hashes[s]) != (frames_want, hash_want):
+                fail(f"multistream stream {s} (prefetch {prefetch}): "
+                     f"{len(got[s])} frames, hash {hashes[s]:#018x}")
     emit({"phase": "multistream_golden", "window": 4, "chunks": ms.chunks,
           "frames": [len(g) for g in got],
           "hashes": [f"{h:#018x}" for h in hashes],
@@ -1605,6 +1734,7 @@ def phase_multistream_1080p() -> dict:
 
     ms = MultiStreamVideoDecoder(streams, window=2, device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    counts = _transport_counts()
     cuda_kernels.reset_launches()
     rounds, frames = 0, [[] for _ in streams]
     while (got := ms.decode_window()) is not None:
@@ -1612,6 +1742,13 @@ def phase_multistream_1080p() -> dict:
         for s, f in enumerate(got):
             frames[s].extend(f)
     torch.cuda.synchronize()
+    transport = check_transport(counts, "64-stream 1080p")
+    # Pinned host memory at the high-water mark: the two slots of the
+    # grown buckets and the step tables' staging ring.
+    pinned_bytes = sum(s.meta_host.numel() + s.main_host.numel()
+                       for s in ms._slots) + \
+        sum(b.numel() for b, _g in ms._decode._staging._bufs
+            if b is not None)
     launches = {"reconstruct_picture": cuda_kernels.reconstruct_picture
                 .launches, "idct_batch": cuda_kernels.idct_batch.launches,
                 "reconstruct_picture_multi":
@@ -1660,6 +1797,7 @@ def phase_multistream_1080p() -> dict:
            "stream_pictures_kept": list(STREAM_CUTS), "rounds": rounds,
            "frames": n_frames, "equal_to_native_host_decoder": True,
            "launches": launches, "k1_launch_bound": bound,
+           "transport": transport, "pinned_host_bytes_held": pinned_bytes,
            # the checked pass's peak: it keeps every frame, as decode_all
            "peak_device_gib": peak_gib,
            "fps_median": statistics.median(p["fps"] for p in passes[False]),
@@ -2047,7 +2185,8 @@ def phase_interactive_1080p() -> dict:
     warm-up): video and audio frames/s, the share of the wall in the host
     parse (the pipeline's picture and frame pulls), in each picture's
     blob pack, transfer and launches (`Video._reconstruct`) and in each
-    audio frame's synthesis (`Audio._synthesize`)."""
+    audio frame's synthesis (`Audio._synthesize`); and one profiled
+    pass."""
     import numpy as np
     import torch
 
@@ -2063,11 +2202,15 @@ def phase_interactive_1080p() -> dict:
 
     frames, pcm = [], []
     m = MPEG(ps, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts = _transport_counts()
     cuda_kernels.reset_launches()
     with no_plain_synthesis():
         _clock_decode(m, lambda _m, f: frames.append(f.flat.clone()),
                       lambda _m, smp: pcm.append(smp.interleaved.copy()))
     torch.cuda.synchronize()
+    transport = check_transport(counts, "interactive 1080p")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = cuda_kernels.reconstruct_picture.launches
     k4_launches = cuda_kernels.synthesize.launches
     k5_launches = cuda_kernels.densify_unpack.launches
@@ -2144,16 +2287,22 @@ def phase_interactive_1080p() -> dict:
     _passes(timed_pass)
     passes = passes[1:]                    # the warm-up pass: not timed
     med = lambda k: statistics.median(p[k] for p in passes)  # noqa: E731
+    profiled = profiled_pass(
+        lambda: _clock_decode(MPEG(ps, device="cuda"), lambda _m, f: None,
+                              lambda _m, smp: None), med("wall_s"),
+        K5_KERNELS)
     out = {"phase": "interactive_1080p", "card": gpu_name_and_power_limit(),
            "bytes": len(ps), "frames": 32, "pictures": pictures,
            "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
            "audio_equal_to_cpu": True, "k1_launches": launches,
+           # the video transport: the audio's copies are not its
+           "transport": transport, "peak_device_gib": peak_gib,
            "k4_launches": k4_launches, "k5_launches": k5_launches,
            "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
            "parse_share_median": med("parse_share"),
            "pack_and_enqueue_share_median": med("pack_and_enqueue_share"),
            "synthesis_share_median": med("synthesis_share"),
-           "passes": passes}
+           "passes": passes, "profiled_pass": profiled}
     emit(out)
     return out
 
@@ -2220,7 +2369,9 @@ SHARDED_STREAMS = 8
 
 def _native_windows(data: bytes, window: int):
     """`data`'s windows as the C++ parser packs them: (geom, [(blob, km,
-    ke, picture types)])."""
+    ke, picture types)]), each blob a numpy copy."""
+    import numpy as np
+
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
     dec = BatchVideoDecoder(data, window=window, device="cuda")
@@ -2229,7 +2380,7 @@ def _native_windows(data: bytes, window: int):
         blob, types, _fill = dec._native_window_blob()
         if not types:
             return dec.geom, out
-        out.append((blob.copy(), dec._km, dec._ke, types))
+        out.append((np.asarray(blob).copy(), dec._km, dec._ke, types))
 
 
 def _common_blobs(per_stream, geom, window: int):
@@ -2338,10 +2489,12 @@ def phase_sharded_1080p() -> dict:
                                            ["cuda:0", "cuda:0"])):
         mesh = sh.make_mesh(devices)
         torch.cuda.reset_peak_memory_stats()
+        counts = _transport_counts()
         cuda_kernels.reset_launches()
         frames, total_px = _sharded_decode(sh, geom, mesh, blobs, types,
                                            window, km, ke)
         torch.cuda.synchronize()
+        transport = check_transport(counts, f"sharded 1080p ({name})")
         launches = cuda_kernels.reconstruct_picture.launches
         k5_launches = cuda_kernels.densify_unpack.launches
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2370,7 +2523,7 @@ def phase_sharded_1080p() -> dict:
             "devices": [str(d) for d in mesh.devices], "frames": n_frames,
             "equal_to_native_host_decoder": True, "total_px": total_px,
             "total_px_dtype": "int64", "k1_launches": launches,
-            "k5_launches": k5_launches,
+            "k5_launches": k5_launches, "transport": transport,
             "k1_launch_bound": bound, "peak_device_gib": peak_gib,
             "fps_median": n_frames / statistics.median(walls),
             "walls_s": walls,
@@ -2421,6 +2574,246 @@ def phase_sharded_1080p() -> dict:
                     "equal_to_one_stream": True, "total": int(total),
                     "golden_with_decoder_tail": True,
                     "k4_launches": k4_launches}
+    emit(out)
+    return out
+
+
+# About 50 ms of the card's time at its ~2 GHz clock: longer than a
+# window's parse, so that the copies are still pending when the prefetch
+# thread wants the next blob.
+HOLD_CYCLES = 100_000_000
+
+
+def _hold(dev, cycles: int = HOLD_CYCLES) -> None:
+    """The transport's adversary: the compute stream and the copy stream
+    each busy for `cycles` clocks from now (`torch.cuda._sleep`)."""
+    import torch
+
+    from mpeg_tpu_torch.parallel.batch import copy_stream
+
+    torch.cuda._sleep(cycles)
+    with torch.cuda.stream(copy_stream(dev)):
+        torch.cuda._sleep(cycles)
+
+
+def phase_transport() -> dict:
+    """The window transport under an adversary that holds the compute
+    stream and the copy stream before every window, round or call, so
+    that copies and kernels are in flight while the parse prefetch
+    thread wants a free blob: the 1080p fixture at window 4 (prefetch
+    on), 8 lockstep streams of its four lengths at window 2 (prefetch
+    on) and the sharded decode of 8 streams on the card listed twice
+    (the caller's blobs overwritten after each call), every frame against
+    the C++ host decoder; and one more window, round, call or picture on
+    each of the four paths with both streams held returns while the held
+    work is pending (no copy waits for the card)."""
+    import torch
+
+    from mpeg_tpu_torch import Buffer, Video
+    from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
+                                         MultiStreamVideoDecoder)
+    from mpeg_tpu_torch.parallel import sharding as sh
+    from mpeg_tpu_torch.parallel.batch import copy_stream
+
+    import io
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = _fixture_1080p()
+    cuts = _stream_cuts(data)
+    want = [[torch.from_numpy(f).to(dev) for f in _native_frames(c)]
+            for c in cuts]
+    out = {"phase": "transport", "hold_cycles": HOLD_CYCLES}
+
+    t0 = time.perf_counter()
+    dec = BatchVideoDecoder(data, window=4, prefetch=True, device="cuda")
+    frames = []
+    while True:
+        _hold(dev)
+        got = dec.decode_window()
+        if not got:
+            break
+        frames.extend(got)
+    torch.cuda.synchronize()
+    _check_against_host(frames, want[0], dec.geom.frame_size,
+                        "transport adversary, 1080p")
+    out["single_stream"] = {"frames": len(frames),
+                            "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    streams = [cuts[s % len(cuts)] for s in range(8)]
+    ms = MultiStreamVideoDecoder(streams, window=2, prefetch=True,
+                                 device="cuda")
+    frames = [[] for _ in streams]
+    while True:
+        _hold(dev)
+        got = ms.decode_window()
+        if got is None:
+            break
+        for s, f in enumerate(got):
+            frames[s].extend(f)
+    torch.cuda.synchronize()
+    for s in range(8):
+        _check_against_host(frames[s], want[s % len(cuts)],
+                            ms.geom.frame_size,
+                            f"transport adversary, stream {s}")
+    out["streams_8"] = {"frames": sum(len(f) for f in frames),
+                        "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    parsed = [_native_windows(c, 8) for c in cuts]
+    geom = parsed[0][0]
+    blobs, types, km, ke = _common_blobs(
+        [parsed[s % len(cuts)][1] for s in range(8)], geom, 8)
+    mesh = sh.make_mesh([str(dev), str(dev)])
+
+    class Held:
+        """The sharded decoder, both streams held before each call and
+        the caller's blobs overwritten after it."""
+
+        def make_sharded_blob_decoder(self, *args):
+            decode = sh.make_sharded_blob_decoder(*args)
+
+            def held(carry, stacked):
+                _hold(dev)
+                stacked = stacked.copy()
+                got = decode(carry, stacked)
+                stacked[:] = 0xA5
+                return got
+            return held
+
+        def __getattr__(self, name):
+            return getattr(sh, name)
+
+    frames, _px = _sharded_decode(Held(), geom, mesh, blobs, types, 8, km,
+                                  ke)
+    torch.cuda.synchronize()
+    for s in range(8):
+        _check_against_host(frames[s], want[s % len(cuts)], geom.frame_size,
+                            f"transport adversary, sharded stream {s}")
+    out["sharded_card_twice"] = {"frames": sum(len(f) for f in frames),
+                                 "seconds": time.perf_counter() - t0}
+
+    # One more step on each path with both streams held.
+    es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
+
+    def busy():
+        return not torch.cuda.current_stream(dev).query() and \
+            not copy_stream(dev).query()
+
+    waited = {}
+    d = BatchVideoDecoder(es, window=4, pool_buckets=(1 << 16, 1 << 10),
+                          device="cuda")
+    d.decode_window()
+    torch.cuda.synchronize()
+    _hold(dev)
+    d.decode_window()
+    waited["batch"] = not busy()
+    torch.cuda.synchronize()
+    m = MultiStreamVideoDecoder([es, es], window=2,
+                                pool_buckets=(1 << 16, 1 << 10),
+                                device="cuda")
+    m.decode_window()
+    torch.cuda.synchronize()
+    _hold(dev)
+    m.decode_window()
+    waited["multistream"] = not busy()
+    torch.cuda.synchronize()
+    g, wins = _native_windows(es, 8)
+    two, _t, kmc, kec = _common_blobs([wins, wins], g, 8)
+    for name, devices in (("sharded", None),
+                          ("sharded_card_twice", [str(dev), str(dev)])):
+        smesh = sh.make_mesh(devices)
+        decode = sh.make_sharded_blob_decoder(g, smesh, 8, kmc, kec)
+        carry, _d, _p = decode(sh.zero_carry(g, 2, smesh), two[0])
+        torch.cuda.synchronize()
+        _hold(dev)
+        decode(carry, two[1])
+        waited[name] = not busy()
+        torch.cuda.synchronize()
+    buf = Buffer(io.BytesIO(es))
+    buf.set_load_callback(buf.load_reader_callback)
+    video = Video(buf, device="cuda")
+    for _ in range(3):
+        video.decode()
+    torch.cuda.synchronize()
+    _hold(dev)
+    video.decode()
+    waited["interactive"] = not busy()
+    torch.cuda.synchronize()
+    out["waited_for_the_card"] = waited
+    emit(out)
+    if any(waited.values()):
+        fail(f"a path waited for the card with its streams held: {waited}")
+    return out
+
+
+def phase_streams() -> dict:
+    """The inputs the 1080p fixture does not cover, through K5 and K1: the
+    custom-matrix ES on its golden through `Video` (both parsers),
+    `BatchVideoDecoder` (prefetch off and on; also in `golden`) and
+    `MultiStreamVideoDecoder` beside the default-matrix ES; the 8-frame
+    3840x2160 ES (32,400 macroblocks a picture) through
+    `BatchVideoDecoder(window=4)` and `MultiStreamVideoDecoder` (it and a
+    half of it, window 2), against the C++ host decoder, timed."""
+    import io
+
+    import torch
+
+    from mpeg_tpu_torch import Buffer, Video
+    from mpeg_tpu_torch.ops import cuda_kernels
+    from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
+                                         MultiStreamVideoDecoder)
+    from mpeg_tpu_torch.utils import Fnv1a64
+
+    custom = open(os.path.join(TESTDATA, "test_custom_matrix.m1v"),
+                  "rb").read()
+    es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
+    out = {"phase": "streams"}
+    for parser in ("native", "python"):
+        buf = Buffer(io.BytesIO(custom))
+        buf.set_load_callback(buf.load_reader_callback)
+        video = Video(buf, parser=parser, device="cuda")
+        h, n = Fnv1a64(), 0
+        while (f := video.decode()) is not None:
+            h.write(f.y.tobytes())
+            h.write(f.cb.tobytes())
+            h.write(f.cr.tobytes())
+            n += 1
+        out[f"custom_matrix_video_{parser}"] = f"{h.sum64():#018x}"
+        if (n, h.sum64()) != GOLDEN_CUSTOM:
+            fail(f"custom matrices, Video({parser}): {n} frames, hash "
+                 f"{h.sum64():#018x}")
+    ms = MultiStreamVideoDecoder([custom, es], window=8, prefetch=True,
+                                 device="cuda")
+    got = ms.decode_all()
+    hashes = [(len(g), _digest(g, ms.geom)) for g in got]
+    out["custom_matrix_multistream"] = [f"{h:#018x}" for _, h in hashes]
+    if hashes != [GOLDEN_CUSTOM, GOLDEN_VIDEO]:
+        fail(f"custom matrices, multistream: {hashes}")
+
+    data = open(os.path.join(TESTDATA, "test4k.m1v"), "rb").read()
+    want = _native_frames(data)
+    dec = BatchVideoDecoder(data, window=4, device="cuda")
+    cuda_kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = dec.decode_all()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fs = dec.geom.frame_size
+    if len(want) != 8 or dec.geom.mb_size != 32_400:
+        fail(f"4K: {len(want)} host frames, {dec.geom.mb_size} macroblocks")
+    _check_against_host(frames, want, fs, "4K")
+    k1, k5 = (cuda_kernels.reconstruct_picture.launches,
+              cuda_kernels.densify_unpack.launches)
+    ms = MultiStreamVideoDecoder([data, data[:len(data) // 2]], window=2,
+                                 device="cuda")
+    got = ms.decode_all()
+    _check_against_host(got[0], want, fs, "4K, multistream")
+    out["4k"] = {"frames": len(frames), "mb": dec.geom.mb_size,
+                 "equal_to_native_host_decoder": True, "k1_launches": k1,
+                 "k5_launches": k5, "first_pass_s": seconds,
+                 "multistream_frames": [len(g) for g in got]}
     emit(out)
     return out
 
@@ -2593,12 +2986,14 @@ def _rates(tree: str) -> dict:
 
 def phase_turns(parent: str) -> dict:
     """The end-to-end rates of the tree in `parent` and of this one in
-    turns (parent, this, this, parent), each turn its own process
-    (`--rates-of`), all on this card."""
+    turns, in both orders (parent, this, this, parent, then this, parent,
+    parent, this): rates follow a turn's place in its round.  Each turn is
+    its own process (`--rates-of`), all on this card."""
     import subprocess
 
     turns = []
-    for who in ("parent", "this", "this", "parent"):
+    for who in ("parent", "this", "this", "parent",
+                "this", "parent", "parent", "this"):
         tree = os.path.abspath(parent) if who == "parent" else REPO
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--rates-of", tree],
@@ -2608,7 +3003,13 @@ def phase_turns(parent: str) -> dict:
             fail(f"turn of {who} ({tree}): rc {proc.returncode}, "
                  f"{proc.stderr[-1500:]}")
         turns.append({"who": who, **json.loads(lines[-1])})
-    out = {"phase": "turns", "parent_tree": parent, "turns": turns}
+    rates = [k for k, v in turns[0].items()
+             if isinstance(v, dict) and "fps_median" in v]
+    medians = {who: {k: statistics.median(t[k]["fps_median"] for t in turns
+                                          if t["who"] == who)
+                     for k in rates} for who in ("parent", "this")}
+    out = {"phase": "turns", "parent_tree": parent, "medians": medians,
+           "turns": turns}
     emit(out)
     return out
 
@@ -2671,6 +3072,8 @@ def main() -> int:
         interactive = phase_interactive_1080p()
         phase_dense()
         sharded = phase_sharded_1080p()
+        phase_transport()
+        phase_streams()
     if args.parent_tree:
         phase_turns(args.parent_tree)
     phase_multihost()
@@ -2683,6 +3086,25 @@ def main() -> int:
         for name, out in (("e2e_1080p", e2e), ("recon_multi_1080p", multi),
                           ("multistream_1080p", streams),
                           ("sharded_1080p", sharded["meshes"]["card"]))}})
+    # The transport of the four paths: its own count of the checked pass,
+    # and where profiled, the h2d copies' card time, rate and overlap.
+    prof_keys = ("h2d_device_us", "h2d_records", "h2d_pinned_us",
+                 "h2d_gb_per_s", "h2d_under_kernels_share",
+                 "h2d_pinned_records", "h2d_pageable_records",
+                 "device_idle_share_unprofiled_wall",
+                 "device_idle_share_union_unprofiled_wall", "transport")
+    emit({"transport_summary": {
+        name: {"checked_pass": out["transport"],
+               "peak_device_gib": out.get("peak_device_gib"),
+               "profiled_pass": {k: out["profiled_pass"].get(k)
+                                 for k in prof_keys}
+               if "profiled_pass" in out else "not profiled"}
+        for name, out in (("e2e_1080p", e2e),
+                          ("multistream_1080p", streams),
+                          ("sharded_1080p", sharded["meshes"]["card"]),
+                          ("sharded_1080p_card_twice",
+                           sharded["meshes"]["card_twice"]),
+                          ("interactive_1080p", interactive))}})
     k3_decode = multi["profiled_pass"]
 
     recon, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"

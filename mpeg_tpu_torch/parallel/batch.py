@@ -24,8 +24,12 @@ prefetch, streaming `feed` and `at_time`.  Per window the device runs:
 
 The blob transport is the reference's: a window ships its fixed
 metadata+escape prefix and a power-of-two bucket of its filled main
-records (reference: mpeg_tpu/parallel/batch.py module docstring).  The
-dense transport (`stack_plans` + `DenseWindowDecoder`, which
+records (reference: mpeg_tpu/parallel/batch.py module docstring), in
+flight as the reference keeps it: from a pinned host blob, copied
+asynchronously on the device's copy stream, the kernels waiting on the
+copy's event and the host blob recycled once that event has completed
+(`host_blob`, `device_put`, `HostRing`; `BatchVideoDecoder._reap_blobs`).
+The dense transport (`stack_plans` + `DenseWindowDecoder`, which
 `make_dense_scan_decoder` builds) ships the stacked plan arrays as they
 are (~12.5 MB a 1080p picture) and skips steps 1-2; it is the readable
 oracle, fed by the Python parse.
@@ -260,10 +264,13 @@ def _nb_classes(nblocks) -> np.ndarray:
         axis=1).astype(np.uint16)
 
 
-def blob_views(blob: np.ndarray, geom: FrameGeometry, window: int,
+def blob_views(blob, geom: FrameGeometry, window: int,
                km: int, ke: int) -> dict:
     """Typed field views into one window blob (single source of truth
-    for the Python-side layout; parser.cpp writes the same fields)."""
+    for the Python-side layout; parser.cpp writes the same fields).
+    `blob` is a uint8 numpy array or a host tensor (a `host_blob`): the
+    views share its memory."""
+    blob = np.asarray(blob)
     offs, total = blob_layout(geom, window, km, ke)
     assert blob.size == total and blob.dtype == np.uint8
     mb = geom.mb_size
@@ -315,15 +322,22 @@ def split_views(meta_esc: np.ndarray, main_buf: np.ndarray,
 
 
 def pack_plans_blob(plans, geom: FrameGeometry, window: int,
-                    km: int, ke: int, records=None) -> np.ndarray:
+                    km: int, ke: int, records=None,
+                    out: np.ndarray = None) -> np.ndarray:
     """Pack a window of (plan, picture_type) pairs into one uint8 blob.
 
     `records` optionally carries precomputed plan_pool_records results
     (one per plan) so callers that sized the buckets from the same
-    records don't recompute them."""
+    records don't recompute them.  `out`, a uint8 array of at least the
+    blob's size (a `host_blob`'s view), is packed in place and its prefix
+    returned: the blob then needs no staging copy before its transfer."""
     _, total = blob_layout(geom, window, km, ke)
     mb = geom.mb_size
-    blob = np.zeros(total, np.uint8)
+    if out is None:
+        blob = np.zeros(total, np.uint8)
+    else:
+        blob = out[:total]
+        blob[:] = 0
     v = blob_views(blob, geom, window, km, ke)
     flags = v["flags"]
     mvh = v["mv_h"].reshape(window, mb)
@@ -608,12 +622,15 @@ make_scan_decoder = make_dense_scan_decoder
 class PictureBlobRecon(nn.Module):
     """One picture from a one-picture window blob (reference: batch.py
     make_picture_blob_recon): the interactive decode's transport (`Video`,
-    `MPEG`).  The blob's fixed prefix and a power-of-two bucket of its
-    filled main records go to the device in one copy, then
-    `densify_unpack` (K5's three launches on the card) and one K1 launch
+    `MPEG`).  The caller packs the blob in place into a buffer of its
+    `HostRing` (`take`; pinned for the card, two in rotation); its fixed
+    prefix and a power-of-two bucket of its filled main records go to the
+    device in one asynchronous copy (`send`), then `densify_unpack` (K5's
+    three launches on the card) and one K1 launch
     (`cuda_kernels.reconstruct_picture`; the plain versions on the CPU):
-    (cur, fwd, bwd, blob, fill) -> a new flat frame.  A 1080p picture
-    ships ~0.1 MB instead of the 12.5 MB dense coefficient tensor."""
+    (cur, fwd, bwd, blob, ring, fill) -> a new flat frame.  A 1080p
+    picture ships ~0.1 MB instead of the 12.5 MB dense coefficient
+    tensor."""
 
     def __init__(self, geom: FrameGeometry, km: int, ke: int):
         super().__init__()
@@ -624,13 +641,14 @@ class PictureBlobRecon(nn.Module):
         self.register_buffer("nb_class_rep", torch.tensor(
             _NB_CLASS_REP, dtype=torch.int32), persistent=False)
 
-    def forward(self, cur, fwd, bwd, blob: np.ndarray, fill: int = None):
+    def forward(self, cur, fwd, bwd, blob: torch.Tensor, ring: "HostRing",
+                fill: int = None):
+        """`blob`: the host buffer `ring.take` returned last, packed."""
         geom = self.geom
         # [fill, km) of the main lane is zero records by the pad contract.
         nm = self.km if fill is None else fill
         kt = min(pool_bucket(max(nm, 1), _MIN_KM), self.km)
-        dev_blob = torch.from_numpy(blob[:self.split + 4 * kt]).to(
-            cur.device, copy=True)
+        dev_blob, = ring.send([blob[:self.split + 4 * kt]])
         coeffs, meta = densify_unpack(
             dev_blob[:self.split], dev_blob[self.split:], geom, 1, self.km,
             self.ke, self.premult, self.nb_class_rep)
@@ -649,6 +667,197 @@ def carry_from_numpy(frames, device="cuda") -> tuple:
         raise ValueError("carry: expected 3 flat uint8 frames of one size")
     # np.array copies: the source may be read-only (a jax array's view).
     return tuple(torch.from_numpy(np.array(f)).to(dev) for f in frames)
+
+
+# ---------------------------------------------------------------------------
+# Host-to-device transport (reference: each window blob's `jax.device_put`,
+# its host buffer kept in flight until a device gate says the device has
+# read it: BatchVideoDecoder._blob_inflight / _reap_blobs, the
+# multistream slots' `gate`, the sharded decode's asynchronous put)
+# ---------------------------------------------------------------------------
+
+def host_blob(nbytes: int, device) -> torch.Tensor:
+    """A host buffer for blobs bound for `device`: uint8 [nbytes], pinned
+    (page-locked) when `device` is a CUDA device, so that `device_put`
+    copies it asynchronously at the link's pinned rate; plain memory for
+    the CPU.  Its owner allocates it once and recycles it (a pinned
+    allocation costs far more than a pageable one); the native parser
+    writes into its `.numpy()` view (`blob_views`).  A pinned allocation
+    that fails raises."""
+    return torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+# One copy stream a CUDA device, for the process (device index -> stream):
+# every decoder's copies to a card queue on it, in order, beside the
+# kernels on the card's current stream.
+_COPY_STREAMS: dict = {}
+
+
+def copy_stream(device) -> "torch.cuda.Stream":
+    """The side stream on which `device_put` copies to a CUDA device."""
+    dev = explicit_device(device)
+    stream = _COPY_STREAMS.get(dev.index)
+    if stream is None:
+        stream = _COPY_STREAMS.setdefault(dev.index, torch.cuda.Stream(dev))
+    return stream
+
+
+def device_put(parts, device):
+    """Copy host uint8 tensors to `device`; returns (device tensors, gate).
+
+    On a CUDA device every part must be pinned (a `host_blob` or a slice
+    of one: a pageable part raises, and nothing copies in its place).
+    The copies are enqueued with `non_blocking=True` on the device's
+    `copy_stream`, the gate, a CUDA event, is recorded after them, and the
+    device's current stream, where K5 and K1 run, waits on the gate before
+    the work enqueued after this call.  The device tensors are allocated
+    on the copy stream and marked as used on the current one
+    (`record_stream`), so the caching allocator hands their memory out
+    again only after the kernels that read them.  The host parts may be
+    written again once `gate.query()` is true: a completed event after the
+    asynchronous copy proves the bytes were read.  The call never waits
+    for the device.
+
+    On the CPU the parts are cloned (the plain synchronous copy) and the
+    gate is None: the copy is done when the call returns.  Each call adds
+    its copies to `transport_counts`."""
+    dev = explicit_device(device)
+    if dev.type != "cuda":
+        outs = [p.clone() for p in parts]
+        gate = None
+    else:
+        for p in parts:
+            if p.device.type != "cpu" or not p.is_pinned():
+                raise ValueError(
+                    f"device_put to {dev}: a host part of {p.numel()} bytes "
+                    "is not pinned (copy it into a host_blob)")
+        compute = torch.cuda.current_stream(dev)
+        side = copy_stream(dev)
+        with torch.cuda.stream(side):
+            outs = [p.to(dev, non_blocking=True) for p in parts]
+            gate = torch.cuda.Event()
+            gate.record(side)
+        for out in outs:
+            out.record_stream(compute)
+        compute.wait_event(gate)
+        transport_counts.pinned_copies += len(parts)
+    transport_counts.copies += len(parts)
+    transport_counts.bytes += sum(p.numel() * p.element_size() for p in parts)
+    return outs, gate
+
+
+class TransportCounts:
+    """What `device_put` copied since the last `reset_transport_counts`:
+    the copies, those made from pinned memory, and their bytes."""
+
+    copies = pinned_copies = bytes = 0
+
+
+transport_counts = TransportCounts()
+
+
+def reset_transport_counts() -> None:
+    """Set `transport_counts` to 0."""
+    transport_counts.copies = transport_counts.pinned_copies = 0
+    transport_counts.bytes = 0
+
+
+def _gate_done(gate) -> bool:
+    """Whether the copy behind `gate` has read its host buffer (None: a
+    plain copy, done when it returned)."""
+    return gate is None or gate.query()
+
+
+def _stage(part: torch.Tensor, a: np.ndarray) -> None:
+    """Copy the contiguous numpy array `a` into the host tensor `part`,
+    with torch's copy, which spreads a large copy over the intra-op
+    threads (numpy's copy runs on one thread, several times slower for
+    the sharded decoder's blob stacks); with numpy's for a read-only
+    `a`, which torch would not wrap."""
+    src = a.reshape(-1).view(np.uint8)
+    if src.flags.writeable:
+        part.copy_(torch.from_numpy(src))
+    else:
+        part.numpy()[:] = src
+
+
+# At most this many staging buffers a HostRing: past it, `put` waits for
+# the oldest copy instead of pinning more memory.
+_MAX_RING = 8
+
+
+class HostRing:
+    """Staging buffers for host arrays that the caller keeps (the sharded
+    decoder's blobs, the interactive picture's packed blob, a round's K1
+    step tables): `put` copies the arrays into a `host_blob` of the ring
+    and from there to the device through `device_put`.  A buffer is
+    written again only once the gate of the copy that last read it has
+    completed; the ring starts with two buffers in rotation and adds one
+    (up to `_MAX_RING`, then waits for the oldest) only when every buffer
+    is still being read.  The caller may reuse its arrays as soon as
+    `put` returns.  On the CPU, `put` is `device_put`'s plain copy of the
+    arrays themselves."""
+
+    def __init__(self, device):
+        self.device = explicit_device(device)
+        self._bufs = [[None, None], [None, None]]   # [host_blob, gate]
+        self._next = 0
+        self._taken = None   # the entry `take` handed out last
+
+    def _take(self, nbytes: int) -> list:
+        """The next [buffer, gate] whose last copy has completed, its
+        buffer at least `nbytes` long."""
+        n = len(self._bufs)
+        order = [(self._next + k) % n for k in range(n)]
+        free = [i for i in order if _gate_done(self._bufs[i][1])]
+        if free:
+            i = free[0]
+        elif n < _MAX_RING:
+            i = self._next
+            self._bufs.insert(i, [None, None])
+            n += 1
+        else:
+            i = self._next
+            self._bufs[i][1].synchronize()
+        self._next = (i + 1) % n
+        entry = self._bufs[i]
+        entry[1] = None
+        if entry[0] is None or entry[0].numel() < nbytes:
+            entry[0] = host_blob(pool_bucket(nbytes, 4096), self.device)
+        return entry
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        """A buffer of the ring, `nbytes` long, free to write: for a caller
+        that packs in place and then ships it with `send`."""
+        self._taken = self._take(nbytes)
+        return self._taken[0][:nbytes]
+
+    def send(self, parts) -> list:
+        """`device_put` of `parts`, slices of the buffer `take` returned
+        last; that buffer is written again only once their gate has
+        completed."""
+        outs, self._taken[1] = device_put(parts, self.device)
+        return outs
+
+    def put(self, arrays) -> list:
+        """Device tensors holding the numpy `arrays` (their dtypes and
+        shapes)."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        if self.device.type != "cuda":
+            outs, _ = device_put([torch.from_numpy(a) for a in arrays],
+                                 self.device)
+            return outs
+        buf = self.take(sum(a.nbytes for a in arrays))
+        parts, off = [], 0
+        for a in arrays:
+            part = buf[off:off + a.nbytes]
+            _stage(part, a)
+            parts.append(part)
+            off += a.nbytes
+        outs = self.send(parts)
+        return [o.view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+                .view(a.shape) for o, a in zip(outs, arrays)]
 
 
 class BatchVideoDecoder:
@@ -773,17 +982,21 @@ class BatchVideoDecoder:
         self._pf_thread = None
         self._closed = False
         self._cached_geom = None
-        # Window-blob recycling: the h2d copy of a window blob blocks
-        # (pageable host memory), so its host buffer returns through
-        # _blob_free right after the copy, carrying the pool high-water
-        # marks of its last fill, so the native tail pad is O(live
-        # records) instead of O(pool capacity) (see
+        # Window-blob recycling: each window's host blob (a pinned
+        # `host_blob` on the card) stays in _blob_inflight with the gate
+        # of its asynchronous copy (`device_put`) until the gate has
+        # completed, then returns through _blob_free carrying the pool
+        # high-water marks of its last fill, so the native tail pad is
+        # O(live records) instead of O(pool capacity) (see
         # NativeVideoParser.blob_window).  TWO producers append to
-        # _blob_free — the dispatch thread and the parse/prefetch thread
-        # (the zero-picture early return in _native_window_blob hands its
-        # untouched buffer straight back) — and only the parse thread
-        # pops.  CPython deque append/pop are GIL-atomic, so this needs
-        # no lock.
+        # _blob_free — the dispatch thread (via _reap_blobs) and the
+        # parse/prefetch thread (the zero-picture early return in
+        # _native_window_blob hands its untouched buffer straight back) —
+        # and only the parse thread pops.  CPython deque append/pop are
+        # GIL-atomic, so this needs no lock; the free-list cap in
+        # _reap_blobs is best-effort (the dual producer can exceed it by
+        # one).
+        self._blob_inflight = collections.deque()
         self._blob_free = collections.deque()
 
     @classmethod
@@ -1026,14 +1239,18 @@ class BatchVideoDecoder:
             nbytes = split + 4 * kt
             flags = blob_views(blob, self.geom, self.window, *caps)["flags"] \
                 .copy()
-            dev_blob = torch.from_numpy(blob[:nbytes]).to(self.device,
-                                                          copy=True)
-            if fill is not None and len(self._blob_free) < 3:
-                # The copy above is blocking (pageable host memory), so the
-                # host blob is free again as soon as it returns.
-                self._blob_free.append((blob, caps, fill))
+            (dev_blob,), gate = device_put([blob[:nbytes]], self.device)
             self._carry, disps = self._scan(self._carry, dev_blob[:split],
                                             dev_blob[split:], flags)
+            # The blob is recycled once its COPY's gate has completed: a
+            # completed event after the asynchronous copy proves that the
+            # card has read the host bytes.  (The reference gates on the
+            # window's output instead, because XLA:CPU reads device_put
+            # host buffers lazily from inside the jit.)  A Python-parse
+            # blob was staged whole, so its marks are the full buckets.
+            self._reap_blobs()
+            self._blob_inflight.append(
+                (gate, blob, caps, fill if fill is not None else caps))
         else:
             stacked = stack_plans(plans, self.geom, self.window)
             self._carry, disps = self._scan(self._carry, stacked)
@@ -1070,13 +1287,13 @@ class BatchVideoDecoder:
         return plans
 
     def _alloc_window_blob(self):
-        """Allocate or recycle a window blob for the current pool
-        buckets; returns (blob, field views, (hw_nm, hw_ne) pool
-        high-water marks).  Fresh buffers are uninitialized with full
-        high-water marks — the native window call writes every field
-        byte itself; recycled buffers skip re-padding the tail beyond
-        their previous fill (blob_window_impl zeroes record tails and
-        unused picture slots off the GIL either way)."""
+        """Allocate (a `host_blob`: pinned for the card) or recycle a
+        window blob for the current pool buckets; returns (blob, field
+        views, (hw_nm, hw_ne) pool high-water marks).  Fresh buffers are
+        uninitialized with full high-water marks — the native window call
+        writes every field byte itself; recycled buffers skip re-padding
+        the tail beyond their previous fill (blob_window_impl zeroes
+        record tails and unused picture slots off the GIL either way)."""
         key = (self._km, self._ke)
         while True:
             try:
@@ -1088,9 +1305,28 @@ class BatchVideoDecoder:
                                         self._km, self._ke), hwm
             # stale capacity bucket: drop the buffer
         _, total = blob_layout(self.geom, self.window, self._km, self._ke)
-        blob = np.empty(total, np.uint8)
+        blob = host_blob(total, self.device)
         return blob, blob_views(blob, self.geom, self.window,
                                 self._km, self._ke), key
+
+    def _reap_blobs(self):
+        """Move in-flight blobs whose copy has completed (its gate) onto
+        the free list (dispatch thread only).  The reap is `query()`, so it
+        never blocks: blobs whose copy is pending stay in flight, the
+        oldest dropped past 4, so a stalled card cannot grow host memory
+        without bound (a dropped pinned blob is not recycled; torch's host
+        allocator holds its memory until its copy has completed)."""
+        dq = self._blob_inflight
+        while dq:
+            gate, blob, bkey, hwm = dq[0]
+            if not _gate_done(gate):
+                if len(dq) > 4:
+                    dq.popleft()   # drop the reference, no recycling
+                    continue
+                break
+            dq.popleft()
+            if len(self._blob_free) < 3:
+                self._blob_free.append((blob, bkey, hwm))
 
     def _native_window_blob(self):
         """Parse up to `window` pictures in one native call per window
@@ -1181,8 +1417,9 @@ class BatchVideoDecoder:
                 ne = delta_encode(ei)[0].size
                 self._km = max(self._km, pool_bucket(nm, _MIN_KM))
                 self._ke = max(self._ke, pool_bucket(ne, _MIN_KE))
-                blob = pack_plans_blob(plans, self.geom, self.window,
-                                       self._km, self._ke, records=records)
+                blob = self._alloc_window_blob()[0]
+                pack_plans_blob(plans, self.geom, self.window, self._km,
+                                self._ke, records=records, out=blob.numpy())
         caps = (self._km, self._ke) if self.transport == "blob" else None
         return blob, plans, types, caps, time.perf_counter() - t0, fill
 
@@ -1277,6 +1514,7 @@ class BatchVideoDecoder:
         if self._prefetch:
             self._poison()
         self._prefetch = False
+        self._blob_inflight.clear()   # dropped, as in _poison
 
     def _poison(self) -> None:
         """Parsed-ahead windows were discarded; poison further decode
@@ -1293,6 +1531,10 @@ class BatchVideoDecoder:
         self.video = None
         self._closed = True
         self._prefetch = False
+        # Dropped, not waited on: torch's host allocator keeps a pinned
+        # blob's memory until the copy that reads it has completed.
+        self._blob_inflight.clear()
+        self._blob_free.clear()
 
     def decode_all(self) -> list:
         """Decode the whole stream; returns flat frame buffers in display

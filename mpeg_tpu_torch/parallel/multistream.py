@@ -4,8 +4,10 @@ record chain.
 Port of `mpeg_tpu/parallel/multistream.py`.  The host half is the port's
 own copy of the JAX package's: the per-stream native parsers filling
 disjoint picture slots of one logical S*window-picture window blob, the
-recycled host slots (`_Slot`), the prefetch thread, the per-stream
-reference delay and end-of-stream flush.  Per round the device runs:
+two recycled host slots (`_Slot`: pinned on the card, each copied
+asynchronously and refilled only once its copies' gate has completed),
+the prefetch thread, the per-stream reference delay and end-of-stream
+flush.  Per round the device runs:
 
 1-2. one `densify_unpack` over all S*window pictures (the delta chain
    runs across stream boundaries, so the global window is one stream to
@@ -39,8 +41,8 @@ from ..ops.color import flat_frame_to_rgba
 from ..ops.video_recon import FrameGeometry
 from ..tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
 from .batch import (
-    _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, blob_split,
-    densify_unpack, pool_bucket, split_views,
+    _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, HostRing, blob_split,
+    densify_unpack, device_put, host_blob, pool_bucket, split_views,
 )
 
 _SLOTS = 4   # pool frames a stream: current, forward, backward, free
@@ -85,6 +87,14 @@ class GlobalWindowDecoder(nn.Module):
             PREMULTIPLIER_MATRIX, dtype=torch.int32), persistent=False)
         self.register_buffer("nb_class_rep", torch.tensor(
             _NB_CLASS_REP, dtype=torch.int32), persistent=False)
+        self._staging = None   # HostRing of the pool's device
+
+    def to_device(self, device, *arrays) -> list:
+        """Host arrays (step tables, slot indices) on `device`, copied
+        asynchronously through this decoder's `HostRing`."""
+        if self._staging is None or self._staging.device != device:
+            self._staging = HostRing(device)
+        return self._staging.put(arrays)
 
     def step_tables(self, slots: np.ndarray, flags: np.ndarray):
         """The round's K1 tables on the host: (table int32 [window, S, 5],
@@ -129,8 +139,7 @@ class GlobalWindowDecoder(nn.Module):
         pool, slots = carry
         dev = pool.device
         table, disp, slots = self.step_tables(slots, flags)
-        dev_table = torch.from_numpy(table).to(dev)
-        dev_disp = torch.from_numpy(disp).to(dev)
+        dev_table, dev_disp = self.to_device(dev, table, disp)
 
         shape = (geom.height, geom.width, 4) if self.emit_rgba \
             else (geom.total_size,)
@@ -152,25 +161,43 @@ class GlobalWindowDecoder(nn.Module):
 
 
 class _Slot:
-    """One recycled host buffer pair + its pad high-water marks
-    (reference: mpeg_tpu/parallel/multistream.py _Slot, without its device
-    gate: the port's h2d copies block, so a slot is free again once the
-    consumer hands it back)."""
+    """One recycled host buffer pair + its pad high-water marks and its
+    device gate (reference: mpeg_tpu/parallel/multistream.py _Slot).  The
+    buffers are `host_blob`s (pinned for the card): `meta_host` and
+    `main_host` own them, `meta` and `main` are their numpy views, which
+    the native parser fills."""
 
-    __slots__ = ("meta", "main", "views", "types", "hwm", "evt")
+    __slots__ = ("meta_host", "main_host", "meta", "main", "views", "types",
+                 "hwm", "evt", "gate")
 
-    def __init__(self, geom, gw, kmg, keg):
-        self.meta = np.empty(blob_split(geom, gw, kmg, keg), np.uint8)
-        self.main = np.empty(4 * kmg, np.uint8)
+    def __init__(self, geom, gw, kmg, keg, device):
+        self.meta_host = host_blob(blob_split(geom, gw, kmg, keg), device)
+        self.main_host = host_blob(4 * kmg, device)
+        self.meta = self.meta_host.numpy()
+        self.main = self.main_host.numpy()
         self.views = split_views(self.meta, self.main, geom, gw, kmg, keg)
         self.types = np.empty(gw, np.int32)
         self.hwm = (kmg, keg)   # fresh: pad the full capacity once
         # Hand-back event: cleared when the filler hands the slot to the
-        # consumer, set by the consumer after its copies (or when it
-        # decides not to dispatch), so a prefetching filler never refills
-        # a slot the consumer still reads.
+        # consumer, set by the consumer after it has enqueued its copies
+        # and stored their gate (or when it decides not to dispatch), so
+        # a prefetching filler never refills a slot the consumer still
+        # reads.
         self.evt = threading.Event()
         self.evt.set()
+        # The gate of the copies that read the buffers last (`device_put`;
+        # None: no copy in flight).
+        self.gate = None
+
+    def wait(self, closed) -> None:
+        """Block until the consumer has handed the slot back and its
+        copies have read the buffers (the gate); `closed()` true raises."""
+        while not self.evt.wait(timeout=0.5):
+            if closed():
+                raise RuntimeError("decoder closed")
+        if self.gate is not None:
+            self.gate.synchronize()
+            self.gate = None
 
 
 class MultiStreamVideoDecoder:
@@ -194,7 +221,8 @@ class MultiStreamVideoDecoder:
     and "pallas" run K1; "xla" has no counterpart in the port and raises
     on a CUDA device (on the CPU every choice runs the plain version).
     `stats` (an optional `DecodeStats`) records per round the parse time
-    the round waited for, and the h2d copy and enqueue time.
+    the round waited for, and the time to enqueue its asynchronous copies
+    and its launches.
     """
 
     def __init__(self, sources: List[bytes], window: int = 2,
@@ -277,7 +305,7 @@ class MultiStreamVideoDecoder:
         self._closed = False
         self.stats = stats
 
-    # -- host fill (the reference's body; only the reuse gate differs) ------
+    # -- host fill (the reference's body) ------------------------------------
 
     def _fill(self):
         """Parse one global window; returns (slot, types [S, W], nm,
@@ -289,18 +317,17 @@ class MultiStreamVideoDecoder:
         the grown layout and RESUMES (the parsers have consumed those
         pictures; only the pending picture is re-emitted)."""
         gw = self.n * self.window
+        closed = lambda: self._closed   # noqa: E731
         if self._slots is None:
-            self._slots = [_Slot(self.geom, gw, self._kmg, self._keg)
-                           for _ in range(2)]
+            self._slots = [_Slot(self.geom, gw, self._kmg, self._keg,
+                                 self.device) for _ in range(2)]
             self._slot_i = 0
         slot = self._slots[self._slot_i]
-        # Reuse barrier: wait until the consumer HANDED the slot back
-        # (evt).  The consumer's h2d copies from pageable host memory
-        # block, so the slot is free once it hands it back: no device
-        # gate is needed.
-        while not slot.evt.wait(timeout=0.5):
-            if self._closed:
-                raise RuntimeError("decoder closed")
+        # Reuse barrier, two parts: wait until the consumer HANDED the
+        # slot back (evt — stored the gate or skipped the dispatch), then
+        # on the gate itself: the copies must have read these buffers
+        # before the parser overwrites them.
+        slot.wait(closed)
         v = slot.views
         nm = ne = pm = pe = 0
         for s, p in enumerate(self.parsers):
@@ -327,12 +354,12 @@ class MultiStreamVideoDecoder:
                 self._keg = pool_bucket(ne + ce + slack, self._keg)
                 old_types = slot.types
                 old_v = v
+                # Every old slot's copies complete before the old layout
+                # is dropped.
                 for other in self._slots:
-                    while not other.evt.wait(timeout=0.5):
-                        if self._closed:
-                            raise RuntimeError("decoder closed")
-                self._slots = [_Slot(self.geom, gw, self._kmg, self._keg)
-                               for _ in range(2)]
+                    other.wait(closed)
+                self._slots = [_Slot(self.geom, gw, self._kmg, self._keg,
+                                     self.device) for _ in range(2)]
                 self._slot_i = 0
                 slot = self._slots[0]
                 v = slot.views
@@ -353,7 +380,7 @@ class MultiStreamVideoDecoder:
         slot.hwm = (nm, ne)
         self._slot_i = (self._slot_i + 1) % len(self._slots)
         slot.evt.clear()   # handed out; the consumer sets it back after
-                           # its copies (or when it skips the dispatch)
+                           # storing the gate (or skipping the dispatch)
         # types is COPIED out: the consumer reads it on the host after
         # it hands the slot back, at which point a prefetch producer
         # may already be refilling the slot's buffers.
@@ -466,14 +493,16 @@ class MultiStreamVideoDecoder:
                     any_flush = True
             return out if any_flush else None
 
-        # At least one stream produced pictures this round.  The copies
-        # block (pageable host memory), so the slot goes back at once.
+        # At least one stream produced pictures this round: both copies
+        # (meta+escape, then the main records' bucket) are enqueued on the
+        # copy stream and the slot goes back with their gate, on which the
+        # filler waits before it writes the slot again.
         t1 = time.perf_counter()
         kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
-        meta_esc = torch.from_numpy(slot.meta).to(self.device, copy=True)
-        main_part = torch.from_numpy(slot.main[:4 * kt]) \
-            .to(self.device, copy=True)
+        (meta_esc, main_part), gate = device_put(
+            [slot.meta_host, slot.main_host[:4 * kt]], self.device)
         flags = slot.views["flags"].copy()
+        slot.gate = gate
         slot.evt.set()
         self._carry, disps = self._decode(self._carry, meta_esc, main_part,
                                           flags)

@@ -20,9 +20,12 @@ Transports mirror `parallel.batch`: window-pool blobs, one a stream
 same way (`make_sharded_audio_synth`, one K4 launch a shard).
 
 Every shard's work is enqueued before any result is waited on, so that
-shards on several cards overlap.  The host-to-device copies come from
-pageable memory and block the host, so the shards' copies run one after
-another.
+shards on several cards overlap.  The blob decoder stages the caller's
+blobs into pinned host buffers of its own (a `batch.HostRing` a device:
+two in rotation, each written again only once the copy that last read
+it has completed) and copies each shard asynchronously on its device's
+copy stream (`batch.device_put`): nothing waits for a card, and the
+caller may reuse its blobs as soon as a call returns.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..device import explicit_device
 from ..ops.cuda_kernels import synthesize
 from ..ops.video_recon import FrameGeometry
 from .batch import (
-    _PLAN_FIELDS, DenseWindowDecoder, blob_layout, blob_split,
+    _PLAN_FIELDS, DenseWindowDecoder, HostRing, blob_layout, blob_split,
     densify_unpack, pack_plans_blob, stack_plans,
 )
 from .multistream import GlobalWindowDecoder
@@ -123,16 +126,21 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
     total_size] tensor a shard; `total_px` the decoded pixels of every
     stream (int64, summed over the process group).
 
-    Each shard copies its blobs to its device in one copy, densifies and
-    unpacks all its streams in one `densify_unpack` (K5's three launches
-    on the card), then runs one stream-batched K1 launch a step over its
-    streams
+    The blobs of each device's shards are staged into one pinned buffer
+    of the decoder's `batch.HostRing` for that device (one ring a device,
+    however often the mesh lists it) and each shard's rows are
+    copied asynchronously on the device's copy stream; each shard then
+    densifies and unpacks all its streams in one `densify_unpack` (K5's
+    three launches on the card, after the copy's gate), and runs one
+    stream-batched K1 launch a step over its streams
     (`GlobalWindowDecoder.reconstruct`: a frame pool of four frames a
-    stream and a slot table rotated on the host)."""
+    stream and a slot table rotated on the host).  The call waits for no
+    card, and `blobs` may be reused as soon as it returns."""
     offs, total = blob_layout(geom, window, km, ke)
     split = blob_split(geom, window, km, ke)
     flags_off = offs["flags"][0]
     shards = {}   # (device, streams) -> GlobalWindowDecoder
+    staging = {}  # device -> HostRing of its shards' blobs
 
     def decode_shard(dec, carry_d, dev_blobs, flags):
         coeffs, meta = densify_unpack(
@@ -152,9 +160,18 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
                              f"{_n_streams(carry)} carried streams")
         flags = np.ascontiguousarray(
             blobs[:, flags_off:flags_off + 4 * window]).view(np.int32)
-        # All copies first: a blocking copy waits for its device's queue.
-        dev_blobs = [torch.from_numpy(blobs[a:b]).to(d)
-                     for d, a, b in layout]
+        # Every shard's copy first, one staging buffer a device.
+        on_device = {}
+        for i, (d, _a, _b) in enumerate(layout):
+            on_device.setdefault(d, []).append(i)
+        dev_blobs = [None] * len(layout)
+        for d, shard_ids in on_device.items():
+            if d not in staging:
+                staging[d] = HostRing(d)
+            copies = staging[d].put([blobs[layout[i][1]:layout[i][2]]
+                                     for i in shard_ids])
+            for i, dev_blob in zip(shard_ids, copies):
+                dev_blobs[i] = dev_blob
         outs = []
         for i, (d, a, b) in enumerate(layout):
             key = (d, b - a)
@@ -179,7 +196,7 @@ def _pooled_window(dec: GlobalWindowDecoder, carry_d, plan, flags):
     pool = torch.cat([cur, fwd, bwd, torch.empty_like(cur)])
     slots = np.arange(4 * s_d, dtype=np.int64).reshape(4, s_d).T.copy()
     (pool, slots), disps = dec.reconstruct((pool, slots), plan, flags)
-    index = torch.from_numpy(slots[:, :3].T.copy()).to(pool.device)
+    index, = dec.to_device(pool.device, slots[:, :3].T)
     return tuple(pool[index[k]] for k in range(3)), disps
 
 

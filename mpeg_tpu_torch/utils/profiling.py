@@ -16,7 +16,13 @@ from dataclasses import dataclass, field
 
 @dataclass
 class DecodeStats:
-    """Accumulating decode counters; read `.summary()` at any point."""
+    """Accumulating decode counters; read `.summary()` at any point.
+
+    `host_seconds` is the host parse a decode waited for;
+    `device_seconds` the time to enqueue each window's (round's) copies
+    and launches: the video decoders' copies are asynchronous
+    (`parallel.batch.device_put`), so it does not wait for the copy or
+    the card.  `transfer_bytes` counts the bytes each window shipped."""
 
     frames: int = 0
     pixels: int = 0

@@ -190,10 +190,12 @@ class Video:
 
         self.geom: Optional[FrameGeometry] = None
         # Sticky pool-bucket capacities of the per-picture blob transport
-        # and the reconstruct module built for them.
+        # and the reconstruct module built for them; the HostRing the
+        # picture blobs are packed into.
         self._blob_km = 0
         self._blob_ke = 0
         self._recon = None
+        self._blob_ring = None
 
         self.start_code = -1
         self.picture_type = 0
@@ -636,8 +638,15 @@ class Video:
         self._blob_km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
         self._blob_ke = max(self._blob_ke,
                             B.pool_bucket(max(ne, 1), B._MIN_KE))
-        blob = B.pack_plans_blob(item, self.geom, 1, self._blob_km,
-                                 self._blob_ke, records=records)
+        # Packed in place into a host buffer of this Video's ring (pinned
+        # for the card, two in rotation, each written again only once its
+        # last copy has completed).
+        if self._blob_ring is None:
+            self._blob_ring = B.HostRing(self.device)
+        total = B.blob_layout(self.geom, 1, self._blob_km, self._blob_ke)[1]
+        blob = self._blob_ring.take(total)
+        B.pack_plans_blob(item, self.geom, 1, self._blob_km, self._blob_ke,
+                          records=records, out=blob.numpy())
         if self._recon is None or \
                 (self._recon.km, self._recon.ke) != (self._blob_km,
                                                      self._blob_ke):
@@ -645,7 +654,8 @@ class Video:
                 self.geom, self._blob_km, self._blob_ke).to(self.device)
         cur = self.frame_current
         cur.flat = self._recon(cur.flat, self.frame_forward.flat,
-                               self.frame_backward.flat, blob, fill=nm)
+                               self.frame_backward.flat, blob,
+                               self._blob_ring, fill=nm)
 
     def _decode_slice(self, slice_index: int) -> None:
         buf = self.buf

@@ -64,7 +64,7 @@ def _native_blobs(path, window, n):
     for _ in range(n):
         blob, types, fill = dec._native_window_blob()
         assert len(types) == window
-        out.append((blob.copy(), dec._km, dec._ke, fill))
+        out.append((np.asarray(blob).copy(), dec._km, dec._ke, fill))
     return dec.geom, out
 
 
