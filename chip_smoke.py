@@ -39,7 +39,8 @@ of the port and checks its output:
 - `rgba`: the 1080p fixture with `emit_rgba=True` against numpy;
 - `audio`: MP2 through `Audio(device="cuda")` and `BatchAudioDecoder`
   (f32, s16, `out_device`) against the no-FMA golden and each other, K4
-  launched once a frame and once a window, timed;
+  launched once a frame and once a window after one pinned copy of
+  samples each, timed;
 - `interactive_golden`: `Video(device="cuda")` (both parsers) and
   `MPEG(test.mpg, device="cuda")` against the goldens, K1 launched once
   a picture, and a seek;
@@ -49,18 +50,25 @@ of the port and checks its output:
   once an audio frame, timed;
 - `dense`: `BatchVideoDecoder(transport="dense")` (the Python parse) on
   the golden, then on the 1080p fixture cut to 9 pictures against the
-  blob transport and the C++ host decoder;
+  blob transport and the C++ host decoder, every copy pinned and the
+  dense ring within three window stacks, timed and profiled (its h2d
+  card time); and `make_sharded_scan_decoder` on the card's mesh and on
+  the card listed twice, four streams against the blob sharded decoder
+  and the C++ host decoder, K1 launched once a step a shard;
 - `sharded_1080p`: 8 streams of the 1080p fixture (four lengths) as
   native window blobs through `parallel.sharding` on the card's mesh and
   on the card listed twice, every frame against the C++ host decoder and
   the int64 pixel count exact, timed; and the sharded MP2 synthesis
-  (one K4 launch a shard) against the single-stream one and the golden;
+  (one pinned copy and one K4 launch a shard) against the single-stream
+  one and the golden;
 - `transport`: the window transport under an adversary that holds the
   compute stream and the copy stream (`torch.cuda._sleep`) before every
   window, round or call: the 1080p fixture (prefetch on), 8 lockstep
   streams (prefetch on) and the sharded decode on the card listed twice
-  against the C++ host decoder; and one more step of each of the four
-  paths, with both streams held, returning while the held work pends;
+  against the C++ host decoder; and one more step of each blob, dense
+  and MP2 path, with both streams held, returning while the held work
+  pends (the MP2 paths that hand back host PCM wait for it), its output
+  equal to the same step's run free;
 - `streams`: the custom-matrix ES on its golden through `Video` (both
   parsers) and `MultiStreamVideoDecoder`, and the 8-frame 3840x2160 ES
   through `BatchVideoDecoder(window=4)` and `MultiStreamVideoDecoder`
@@ -78,9 +86,10 @@ pictures, the adversarial plan and (K1) 64-stream launches.
 `--parent-tree DIR` (a checkout of another commit, e.g. the parent's
 unpacked by `git archive` into a git-ignored directory) times the
 end-to-end rates of that tree and of this one in turns, in both orders
-(parent, this, this, parent, this, parent, parent, this; the 64-stream
-and sharded decodes also profiled), each turn a process of its own that
-imports the package from its tree (`--rates-of`).
+(parent, this, this, parent, this, parent, parent, this; the 64-stream,
+sharded and dense decodes also profiled, each one's h2d card time listed
+turn by turn), each turn a process of its own that imports the package
+from its tree (`--rates-of`).
 `--synth-baseline` (which may be repeated) likewise builds K4 from
 another copy of `synth.cu` with K4's flags, holds its outputs and states
 equal to this K4's on ragged calls and on the timed inputs, and times the
@@ -103,10 +112,12 @@ start early (programmatic dependent launch), includes their waits for the
 launch before, so it is reported as such and compared with nothing.
 
 The window transport's own count (`parallel.batch.transport_counts`:
-copies, those from pinned memory, bytes) is read on the single-stream,
-64-stream, sharded and interactive paths and must show every copy
-pinned; their profiled passes add the h2d copies' card time, rate and
-share under kernels, and the union busy time (`transport_summary`).
+copies, those from pinned memory, bytes) is read on every decode path
+(single stream, 64 streams, sharded, interactive A/V, dense, sharded
+dense, the MP2 paths) and must show every copy pinned; the profiled
+passes add the h2d copies' card time, rate and share under kernels, and
+the union busy time (`transport_summary`); the interactive pass may
+copy only the decoders' two constant tables from pageable memory.
 Each path's kernel launch counts (the wrappers' counters) are set to 0
 just before it runs and read just after; the MP2 paths also fail if the
 plain filterbank sees a CUDA tensor, and the video paths if the plain
@@ -1958,19 +1969,53 @@ def _pcm_hash(chunks) -> int:
     return h.sum64()
 
 
+def _frame_copy_host_us(calls: int = 2000) -> dict:
+    """Host us a call of one MP2 frame's copy to the card (9,216 bytes of
+    samples), each way the port could make it: `device_put` on the copy
+    stream with its gate (the window paths'), `device_put` on the current
+    stream (`Audio`'s) and `Tensor.to` from pageable memory; each queued
+    `calls` times back to back, the card synchronized once after them."""
+    import numpy as np
+    import torch
+
+    from mpeg_tpu_torch.parallel.batch import device_put, host_blob
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frame = np.zeros((36, 2, 32), np.int32)
+    host = host_blob(frame.nbytes, dev)
+    ways = {"device_put_copy_stream": lambda: device_put([host], dev),
+            "device_put_current_stream":
+                lambda: device_put([host], dev, current_stream=True),
+            "pageable_to": lambda: torch.from_numpy(frame).to(dev)}
+    out = {}
+    for name, fn in ways.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
 def phase_audio() -> dict:
     """MP2 on the card: `Audio(device="cuda")` on test.mp2 on the no-FMA
     golden with K4 launched once a frame; `BatchAudioDecoder` at window
     32 with K4 launched once a window, f32 on the golden, s16 equal to the
     s16 the host derives from those samples, and `out_device=True` equal
-    to both; no plain filterbank op on the card in any of them.  Then
-    timed (median of 3 after a warm-up): Audio.decode and
-    BatchAudioDecoder frames/s, and the aten ops (copies, allocations:
+    to both; no plain filterbank op on the card in any of them, and one
+    copy of samples a launch, from pinned memory (the transport's count).
+    Then timed (median of 3 after a warm-up): Audio.decode and
+    BatchAudioDecoder frames/s, the aten ops (copies, allocations:
     `count_launches`) of one `Audio._synthesize`, beside its one K4
-    launch."""
+    launch, and a frame's copy's host us each way
+    (`_frame_copy_host_us`)."""
     import io
 
     import numpy as np
+    import torch
 
     from mpeg_tpu_torch import Audio, Buffer
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
@@ -1991,15 +2036,24 @@ def phase_audio() -> dict:
             frames.append(smp.interleaved)
         return frames
 
+    transports = {}
+
     def k4_launches(run, want, what: str):
         """(run(), K4's count in it) with the count from 0 and no plain
-        filterbank on the card; K4 launched want(result) times."""
+        filterbank on the card; K4 launched want(result) times, and one
+        copy of samples, pinned, each time."""
+        counts = _transport_counts()
         cuda_kernels.reset_launches()
         with no_plain_synthesis():
             got = run()
+        torch.cuda.synchronize()
         launches = cuda_kernels.synthesize.launches
         if launches != want(got):
             fail(f"{what}: K4 launched {launches} times, want {want(got)}")
+        transports[what] = check_transport(counts, what)
+        if transports[what]["copies"] != launches:
+            fail(f"{what}: {transports[what]['copies']} copies for "
+                 f"{launches} launches")
         return got, launches
 
     frames, frame_launches = k4_launches(decode_audio, len, "Audio")
@@ -2040,7 +2094,7 @@ def phase_audio() -> dict:
            "frames": n, "hash": f"{_pcm_hash(frames):#018x}",
            "want": f"{GOLDEN_AUDIO[1]:#018x}", "batch_f32_golden": True,
            "batch_s16_equal_host_s16": True, "out_device_equal": True,
-           "k4_launches": frame_launches,
+           "k4_launches": frame_launches, "transport": transports,
            "batch_windows": windows_of(f32),
            "batch_k4_launches": window_launches,
            "launches_counted_by": "the wrapper's counter "
@@ -2051,6 +2105,7 @@ def phase_audio() -> dict:
            "batch_walls_s": batch_walls,
            "synthesize_aten_ops_a_frame": count_launches(
                lambda: audio._synthesize(sub)),
+           "frame_copy_host_us": _frame_copy_host_us(),
            "aten_ops_counted_by": "count_launches: the h2d and d2h copies "
            "and the allocations, not the ctypes launch"}
     emit(out)
@@ -2181,12 +2236,14 @@ def phase_interactive_1080p() -> dict:
     video frame against the C++ host decoder on the 1080p ES and the
     audio against `MPEG(..., device="cpu")` on the same bytes, K1's
     and K4's launches read from that run (once a picture, once an audio
-    frame; no plain filterbank op on the card); then timed (median of 3 after a
+    frame; no plain filterbank op on the card), one pinned copy a picture
+    and one an audio frame; then timed (median of 3 after a
     warm-up): video and audio frames/s, the share of the wall in the host
     parse (the pipeline's picture and frame pulls), in each picture's
     blob pack, transfer and launches (`Video._reconstruct`) and in each
     audio frame's synthesis (`Audio._synthesize`); and one profiled
-    pass."""
+    pass, with at most the two constant tables copied from pageable
+    memory where the profiler recorded the card."""
     import numpy as np
     import torch
 
@@ -2230,6 +2287,9 @@ def phase_interactive_1080p() -> dict:
             not np.array_equal(np.concatenate(pcm), np.concatenate(cpu_pcm)):
         fail(f"interactive 1080p audio: {len(pcm)} frames on the card, "
              f"{len(cpu_pcm)} on the CPU, or they differ")
+    if transport["copies"] != pictures + len(pcm):
+        fail(f"interactive 1080p: {transport['copies']} copies for "
+             f"{pictures} pictures and {len(pcm)} audio frames")
     del frames
 
     passes = []
@@ -2291,11 +2351,16 @@ def phase_interactive_1080p() -> dict:
         lambda: _clock_decode(MPEG(ps, device="cuda"), lambda _m, f: None,
                               lambda _m, smp: None), med("wall_s"),
         K5_KERNELS)
+    # Pageable copies left: the decoders' two constant tables, copied
+    # once a decoder (`PictureBlobRecon`'s premultipliers and classes).
+    if profiled.get("h2d_pageable_records", 0) > 2:
+        fail(f"interactive 1080p: {profiled['h2d_pageable_records']} "
+             "pageable copies in the profiled pass")
     out = {"phase": "interactive_1080p", "card": gpu_name_and_power_limit(),
            "bytes": len(ps), "frames": 32, "pictures": pictures,
            "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
            "audio_equal_to_cpu": True, "k1_launches": launches,
-           # the video transport: the audio's copies are not its
+           # a copy a picture and a copy an audio frame
            "transport": transport, "peak_device_gib": peak_gib,
            "k4_launches": k4_launches, "k5_launches": k5_launches,
            "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
@@ -2307,43 +2372,155 @@ def phase_interactive_1080p() -> dict:
     return out
 
 
+def _pinned_host() -> dict:
+    """torch's pinned host allocator's own count (bytes pinned and held),
+    where this torch has it."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return {"note": "not measured: torch.cuda.host_memory_stats absent"}
+    got = stats()
+    return {k: got[k] for k in ("allocated_bytes.current",
+                                "reserved_bytes.current",
+                                "reserved_bytes.peak") if k in got}
+
+
+def _ring_held(ring, stack_bytes: int, what: str, least: int = 1) -> dict:
+    """A dense ring's pinned buffers against the bound of `_DENSE_RING`
+    window stacks, each at its power-of-two bucket (the size torch's
+    pinned allocator gives it); at least `least` of them (one ring served
+    every window)."""
+    from mpeg_tpu_torch.parallel.batch import _DENSE_RING, pool_bucket
+
+    bufs = [b for b, _g in ring._bufs if b is not None]
+    held = sum(b.numel() for b in bufs)
+    bound = _DENSE_RING * pool_bucket(stack_bytes, 4096)
+    if not all(b.is_pinned() for b in bufs) or \
+            not least <= len(bufs) <= _DENSE_RING or held > bound:
+        fail(f"{what}: {len(bufs)} ring buffers, {held} bytes held "
+             f"(bound {bound}), pinned {[b.is_pinned() for b in bufs]}")
+    return {"buffers": len(bufs), "bytes": held, "stack_bytes": stack_bytes,
+            "bound_bytes": bound}
+
+
+def _dense_stream_windows(per_stream, geom, window: int):
+    """Each window's stacked dense plans [S, T, ...] and per-stream types
+    (`sharding.stack_stream_plans`)."""
+    from mpeg_tpu_torch.parallel import sharding as sh
+
+    n_win = -(-max(len(p) for p in per_stream) // window)
+    out = []
+    for w in range(n_win):
+        part = [p[w * window:(w + 1) * window] for p in per_stream]
+        out.append((sh.stack_stream_plans(part, geom, window),
+                    [[t for _, t in p] for p in part]))
+    return out
+
+
+def _sharded_frames(decode, carry, windows, dev0):
+    """Each stream's displayed frames from a sharded decoder over
+    `windows` [(inputs, per-stream types)], the reference delay and the
+    end-of-stream flush applied: (frames, summed total_px)."""
+    import torch
+
+    from mpeg_tpu_torch.tables import PICTURE_TYPE_B
+
+    n = len(windows[0][1])
+    frames = [[] for _ in range(n)]
+    has_ref, last = [False] * n, [0] * n
+    total_px = 0
+    for inputs, types in windows:
+        carry, disps, px = decode(carry, inputs)
+        if px.dtype != torch.int64:
+            fail(f"sharded total_px is {px.dtype}, not int64")
+        total_px += int(px)
+        disps = torch.cat([d.to(dev0) for d in disps])
+        for s in range(n):
+            for i, t in enumerate(types[s]):
+                last[s] = t
+                if t == PICTURE_TYPE_B or has_ref[s]:
+                    frames[s].append(disps[s, i])
+                else:
+                    has_ref[s] = True
+    bwd = torch.cat([b.to(dev0) for b in carry[2]])
+    for s in range(n):
+        if has_ref[s] and last[s] != PICTURE_TYPE_B:
+            frames[s].append(bwd[s])
+    return frames, total_px
+
+
+# The sharded dense decoder's streams: the fixture's pictures kept, so that
+# each shard of the card listed twice has a stream with every step valid.
+DENSE_SHARDED_CUTS = (None, 25, None, 17)
+
+
+def _native_plans(data: bytes):
+    """(geom, [(plan, picture type)]) of `data` from the C++ parser."""
+    from mpeg_tpu_torch.native import NativeVideoParser
+
+    parser, plans = NativeVideoParser(data), []
+    while (item := parser.parse_next_plan()) is not None:
+        plans.append(item)
+    return parser.geom(), plans
+
+
 def phase_dense() -> dict:
     """The dense transport on the card: test.mpeg1video through
     `BatchVideoDecoder(transport="dense", use_native=False)` on its golden
     with K1 launched once a picture; then the 1080p fixture cut to 9
     pictures, every frame equal to the blob transport's and to the C++
-    host decoder's, with the bytes each transport ships."""
+    host decoder's, with the bytes each transport ships; each pass's
+    copies all pinned (the transport's count), the dense ring within
+    `_DENSE_RING` stacks; the cut timed (median of 3 after a warm-up that
+    pins the ring) and profiled (its `Memcpy HtoD` card time).  Then
+    `make_sharded_scan_decoder` on `make_mesh()` and on ["cuda:0",
+    "cuda:0"]: four streams of the fixture (DENSE_SHARDED_CUTS) as the C++
+    parser's dense plans at window 16, every frame equal to the blob
+    sharded decoder's and to the C++ host decoder's, K1 launched once a
+    step a shard, every copy pinned, its rings within the bound."""
     import torch
 
+    from mpeg_tpu_torch.device import gpu_name_and_power_limit
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
+    from mpeg_tpu_torch.parallel import sharding as sh
+    from mpeg_tpu_torch.parallel.batch import stack_layout
     from mpeg_tpu_torch.utils.profiling import DecodeStats
 
     es = open(os.path.join(TESTDATA, "test.mpeg1video"), "rb").read()
     dec = BatchVideoDecoder(es, window=16, transport="dense",
                             use_native=False, device="cuda")
+    counts = _transport_counts()
     cuda_kernels.reset_launches()
     frames = dec.decode_all()
     torch.cuda.synchronize()
     launches = cuda_kernels.reconstruct_picture.launches
+    golden_transport = check_transport(counts, "dense golden")
+    golden_ring = _ring_held(dec._scan._ring,
+                             stack_layout(dec.geom, 16)[1], "dense golden",
+                             least=2)
     pictures = len(dec._types)
     digest = _digest(frames, dec.geom)
     if (len(frames), digest) != GOLDEN_VIDEO or launches != pictures:
         fail(f"dense: {len(frames)} frames, hash {digest:#018x}, K1 "
              f"launched {launches} times for {pictures} pictures")
 
-    cut = _stream_cuts(_fixture_1080p())[STREAM_CUTS.index(9)]
+    fixture = _fixture_1080p()
+    cut = _stream_cuts(fixture)[STREAM_CUTS.index(9)]
     want = _native_frames(cut)
     stats = {"dense": DecodeStats(), "blob": DecodeStats()}
     d = BatchVideoDecoder(cut, window=16, transport="dense",
                           use_native=False, device="cuda",
                           stats=stats["dense"])
+    counts = _transport_counts()
     cuda_kernels.reset_launches()
-    t0 = time.perf_counter()
     got = d.decode_all()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     cut_launches = cuda_kernels.reconstruct_picture.launches
+    cut_transport = check_transport(counts, "dense 1080p cut")
+    stack_bytes = stack_layout(d.geom, 16)[1]
+    cut_ring = _ring_held(d._scan._ring, stack_bytes, "dense 1080p cut")
     blob = BatchVideoDecoder(cut, window=16, device="cuda",
                              stats=stats["blob"]).decode_all()
     fs = d.geom.frame_size
@@ -2352,14 +2529,91 @@ def phase_dense() -> dict:
     if cut_launches != len(d._types):
         fail(f"dense 1080p: K1 launched {cut_launches} times for "
              f"{len(d._types)} pictures")
-    out = {"phase": "dense", "golden_frames": len(frames),
-           "hash": f"{digest:#018x}", "k1_launches": launches,
-           "cut_pictures": len(d._types), "cut_frames": len(got),
+    del got, blob
+
+    def run():
+        return BatchVideoDecoder(cut, window=16, transport="dense",
+                                 use_native=False,
+                                 device="cuda").decode_all()
+
+    walls = _passes(run)
+    profiled = profiled_pass(run, statistics.median(walls))
+
+    by_kept = dict(zip(STREAM_CUTS, _stream_cuts(fixture)))
+    cuts = [by_kept[k] for k in DENSE_SHARDED_CUTS]
+    window = 16
+    parsed = [_native_plans(c) for c in cuts]
+    geom = parsed[0][0]
+    windows = _dense_stream_windows([p for _, p in parsed], geom, window)
+    blob_parsed = [_native_windows(c, window) for c in cuts]
+    blobs, blob_types, km, ke = _common_blobs([w for _, w in blob_parsed],
+                                              geom, window)
+    host = [[torch.from_numpy(f).cuda() for f in _native_frames(c)]
+            for c in cuts]
+    sharded = {}
+    for name, devices in (("card", None), ("card_twice",
+                                           ["cuda:0", "cuda:0"])):
+        mesh = sh.make_mesh(devices)
+        decode = sh.make_sharded_scan_decoder(geom, mesh)
+        counts = _transport_counts()
+        cuda_kernels.reset_launches()
+        dense_frames, total_px = _sharded_frames(
+            decode, sh.zero_carry(geom, len(cuts), mesh), windows,
+            mesh.devices[0])
+        torch.cuda.synchronize()
+        k1 = cuda_kernels.reconstruct_picture.launches
+        k5 = cuda_kernels.densify_unpack.launches
+        transport = check_transport(counts, f"sharded dense ({name})")
+        steps = len(windows) * window * len(mesh.devices)
+        if k1 != steps or k5:
+            fail(f"sharded dense ({name}): K1 launched {k1} times for "
+                 f"{steps} steps of its shards, K5 {k5} times")
+        # A shard a window: its stack, K1's two step tables (one put) and
+        # the carry's index.
+        if transport["copies"] != 4 * len(windows) * len(mesh.devices):
+            fail(f"sharded dense ({name}): {transport['copies']} copies "
+                 f"for {len(windows)} windows of {len(mesh.devices)} shards")
+        rings = decode.__closure__[decode.__code__.co_freevars.index(
+            "staging")].cell_contents
+        ring, = rings.values()
+        held = _ring_held(ring, stack_layout(geom, window * len(cuts))[1],
+                          f"sharded dense ({name})", least=len(windows))
+        blob_frames, blob_px = _sharded_decode(sh, geom, mesh, blobs,
+                                               blob_types, window, km, ke)
+        n_pictures = sum(len(p) for _, p in parsed)
+        if total_px != blob_px or total_px != n_pictures * geom.frame_size:
+            fail(f"sharded dense ({name}): total_px {total_px}, blob "
+                 f"{blob_px}, want {n_pictures * geom.frame_size}")
+        for s in range(len(cuts)):
+            _check_against_host(dense_frames[s], host[s], geom.frame_size,
+                                f"sharded dense ({name}), stream {s}")
+            _check_against_host(dense_frames[s], blob_frames[s],
+                                geom.frame_size,
+                                f"sharded dense ({name}) against blob, "
+                                f"stream {s}")
+        sharded[name] = {"devices": [str(dev) for dev in mesh.devices],
+                         "frames": sum(len(f) for f in dense_frames),
+                         "equal_to_native_host_decoder": True,
+                         "equal_to_blob_sharded": True, "k1_launches": k1,
+                         "steps_times_shards": steps, "k5_launches": k5,
+                         "transport": transport, "ring": held}
+        del dense_frames, blob_frames
+    out = {"phase": "dense", "card": gpu_name_and_power_limit(),
+           "golden_frames": len(frames), "hash": f"{digest:#018x}",
+           "k1_launches": launches, "golden_transport": golden_transport,
+           "golden_ring": golden_ring,
+           "cut_pictures": len(d._types), "cut_frames": len(want),
            "equal_to_native_host_decoder": True, "equal_to_blob": True,
            "cut_k1_launches": cut_launches,
-           "cut_wall_s_python_parse_included": wall,
            "cut_transfer_bytes": {k: v.transfer_bytes
-                                  for k, v in stats.items()}}
+                                  for k, v in stats.items()},
+           "transport": cut_transport, "cut_ring": cut_ring,
+           "pinned_host_allocator": _pinned_host(),
+           "cut_fps_median_python_parse_included":
+               len(want) / statistics.median(walls),
+           "cut_walls_s": walls, "profiled_pass": profiled,
+           "sharded_streams_pictures_kept": list(DENSE_SHARDED_CUTS),
+           "sharded_window": window, "sharded": sharded}
     emit(out)
     return out
 
@@ -2417,34 +2671,10 @@ def _common_blobs(per_stream, geom, window: int):
 def _sharded_decode(sh, geom, mesh, blobs, types, window, km, ke):
     """Every window through the sharded blob decoder: (per-stream
     displayed frames, summed total_px, the flush included)."""
-    import torch
-
-    from mpeg_tpu_torch.tables import PICTURE_TYPE_B
-
-    n = blobs[0].shape[0]
     decode = sh.make_sharded_blob_decoder(geom, mesh, window, km, ke)
-    carry = sh.zero_carry(geom, n, mesh)
-    frames = [[] for _ in range(n)]
-    has_ref, last = [False] * n, [0] * n
-    total_px = 0
-    for w, stacked in enumerate(blobs):
-        carry, disps, px = decode(carry, stacked)
-        if px.dtype != torch.int64:
-            fail(f"sharded total_px is {px.dtype}, not int64")
-        total_px += int(px)
-        disps = torch.cat([d.to(mesh.devices[0]) for d in disps])
-        for s in range(n):
-            for i, t in enumerate(types[w][s]):
-                last[s] = t
-                if t == PICTURE_TYPE_B or has_ref[s]:
-                    frames[s].append(disps[s, i])
-                else:
-                    has_ref[s] = True
-    bwd = torch.cat([b.to(mesh.devices[0]) for b in carry[2]])
-    for s in range(n):
-        if has_ref[s] and last[s] != PICTURE_TYPE_B:
-            frames[s].append(bwd[s])
-    return frames, total_px
+    return _sharded_frames(decode, sh.zero_carry(geom, blobs[0].shape[0],
+                                                 mesh),
+                           list(zip(blobs, types)), mesh.devices[0])
 
 
 def phase_sharded_1080p() -> dict:
@@ -2459,7 +2689,8 @@ def phase_sharded_1080p() -> dict:
     `make_sharded_audio_synth` on the card's mesh and on the card listed
     twice: 8 streams of test.mp2's frames (stream s from frame 4s, 320
     frames), K4 launched once a shard (no plain filterbank op on the
-    card), each stream equal to the plain single-stream
+    card) after one pinned copy a shard, each stream equal to the plain
+    single-stream
     `synthesize_window` + `finalize`, and stream 0 with the golden
     decode's last 35 frames on the golden."""
     import numpy as np
@@ -2538,10 +2769,11 @@ def phase_sharded_1080p() -> dict:
     n_frames = 320
     samples = np.stack([np.asarray(sub[4 * s:4 * s + n_frames], np.int32)
                         .reshape(-1, 2, 32) for s in range(SHARDED_STREAMS)])
-    k4_launches = {}
+    k4_launches, audio_transport = {}, {}
     for name, devices in (("card", None), ("card_twice",
                                            ["cuda:0", "cuda:0"])):
         mesh = sh.make_mesh(devices)
+        counts = _transport_counts()
         cuda_kernels.reset_launches()
         with no_plain_synthesis():
             u, _hist, total = sh.make_sharded_audio_synth(mesh)(
@@ -2551,6 +2783,12 @@ def phase_sharded_1080p() -> dict:
         if k4_launches[name] != len(mesh.devices):
             fail(f"sharded synthesis ({name}): K4 launched "
                  f"{k4_launches[name]} times for {len(mesh.devices)} shards")
+        audio_transport[name] = check_transport(
+            counts, f"sharded synthesis ({name})")
+        if audio_transport[name]["copies"] != len(mesh.devices):
+            fail(f"sharded synthesis ({name}): "
+                 f"{audio_transport[name]['copies']} copies for "
+                 f"{len(mesh.devices)} shards")
         u = torch.cat(u)
         if name == "card":
             u_card = u
@@ -2573,7 +2811,7 @@ def phase_sharded_1080p() -> dict:
     out["audio"] = {"streams": SHARDED_STREAMS, "frames": n_frames,
                     "equal_to_one_stream": True, "total": int(total),
                     "golden_with_decoder_tail": True,
-                    "k4_launches": k4_launches}
+                    "k4_launches": k4_launches, "transport": audio_transport}
     emit(out)
     return out
 
@@ -2605,17 +2843,27 @@ def phase_transport() -> dict:
     on) and the sharded decode of 8 streams on the card listed twice
     (the caller's blobs overwritten after each call), every frame against
     the C++ host decoder; and one more window, round, call or picture on
-    each of the four paths with both streams held returns while the held
-    work is pending (no copy waits for the card)."""
+    each of the four blob paths, the dense paths (`BatchVideoDecoder`,
+    `make_dense_scan_decoder`, the sharded dense decoder on the card and
+    on it twice) and the MP2 paths (`BatchAudioDecoder(out_device=True)`,
+    the sharded synthesis on both meshes) with both streams held returns
+    while the held work is pending (no copy waits for the card), its
+    output equal to the same step's run free; `Audio` and
+    `BatchAudioDecoder` with host PCM, which wait for their PCM by
+    contract, equal too."""
+    import io
+
+    import numpy as np
     import torch
 
-    from mpeg_tpu_torch import Buffer, Video
-    from mpeg_tpu_torch.parallel import (BatchVideoDecoder,
-                                         MultiStreamVideoDecoder)
+    from mpeg_tpu_torch import Audio, Buffer, Video
+    from mpeg_tpu_torch.native import NativeAudioParser
+    from mpeg_tpu_torch.parallel import (BatchAudioDecoder,
+                                         BatchVideoDecoder,
+                                         MultiStreamVideoDecoder,
+                                         make_dense_scan_decoder)
     from mpeg_tpu_torch.parallel import sharding as sh
-    from mpeg_tpu_torch.parallel.batch import copy_stream
-
-    import io
+    from mpeg_tpu_torch.parallel.batch import copy_stream, stack_plans
 
     dev = torch.device("cuda", torch.cuda.current_device())
     data = _fixture_1080p()
@@ -2740,6 +2988,101 @@ def phase_transport() -> dict:
     video.decode()
     waited["interactive"] = not busy()
     torch.cuda.synchronize()
+
+    # The dense and MP2 paths: each runs a first window or call, then one
+    # more, free and then with both streams held; held, the step returns
+    # while the held work pends (the MP2 paths that hand back host PCM
+    # wait for it, by contract), and the two steps' outputs are equal.
+    def steps_equal(name, start, step, returns=True):
+        outs = []
+        for held in (False, True):
+            state = start()
+            torch.cuda.synchronize()
+            if held:
+                _hold(dev)
+            got = step(state)
+            outs.append([t.clone() for t in got] if isinstance(got, list)
+                        else got)
+            if held and returns:
+                waited[name] = not busy()
+            torch.cuda.synchronize()
+        a, b = ([torch.as_tensor(t) for t in o] if isinstance(o, list)
+                else [torch.as_tensor(o)] for o in outs)
+        if len(a) != len(b) or not all(torch.equal(x.cpu(), y.cpu())
+                                       for x, y in zip(a, b)):
+            fail(f"transport, {name}: the held step's output differs")
+
+    def dense_batch():
+        d = BatchVideoDecoder(es, window=4, transport="dense",
+                              use_native=False, device="cuda")
+        d.decode_window()
+        return d
+
+    steps_equal("dense_batch", dense_batch, lambda d: d.decode_window())
+    dgeom, dplans = _native_plans(es)
+    stacks = [stack_plans(dplans[a:a + 8], dgeom, 8) for a in (0, 8)]
+
+    def dense_scan():
+        scan = make_dense_scan_decoder(dgeom, device="cuda")
+        carry = tuple(torch.zeros(dgeom.total_size, dtype=torch.uint8,
+                                  device=dev) for _ in range(3))
+        return scan, scan(carry, stacks[0])[0]
+
+    steps_equal("dense_scan", dense_scan,
+                lambda st: st[0](st[1], stacks[1])[1])
+    dwins = _dense_stream_windows([dplans[:16], dplans[:13]], dgeom, 8)
+    for name, devices in (("sharded_dense", None),
+                          ("sharded_dense_card_twice",
+                           [str(dev), str(dev)])):
+        def sharded_dense(devices=devices):
+            smesh = sh.make_mesh(devices)
+            decode = sh.make_sharded_scan_decoder(dgeom, smesh)
+            return decode, decode(sh.zero_carry(dgeom, 2, smesh),
+                                  dwins[0][0])[0]
+
+        steps_equal(name, sharded_dense, lambda st: torch.cat(
+            st[0](st[1], dwins[1][0])[1]))
+    mp2 = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
+    for out_device in (True, False):
+        def batch_audio(out_device=out_device):
+            a = BatchAudioDecoder(mp2, window=32, out_device=out_device,
+                                  device="cuda")
+            a.decode_window()
+            return a
+
+        steps_equal("batch_audio_out_device" if out_device
+                    else "batch_audio_host_pcm", batch_audio,
+                    lambda a: a.decode_window(), returns=out_device)
+
+    def audio():
+        b = Buffer(io.BytesIO(mp2))
+        b.set_load_callback(b.load_reader_callback)
+        a = Audio(b, device="cuda")
+        a.decode()
+        return a
+
+    steps_equal("audio_frame", audio,
+                lambda a: a.decode().interleaved.copy(), returns=False)
+    parser, sub = NativeAudioParser(mp2), []
+    while (f := parser.parse_next_frame()) is not None:
+        sub.append(f)
+    samples = np.stack([np.asarray(sub[4 * k:4 * k + 32], np.int32)
+                        .reshape(-1, 2, 32) for k in range(4)])
+    for name, devices in (("sharded_synthesis", None),
+                          ("sharded_synthesis_card_twice",
+                           [str(dev), str(dev)])):
+        def sharded_synth(devices=devices):
+            smesh = sh.make_mesh(devices)
+            return sh.make_sharded_audio_synth(smesh), \
+                sh.zero_audio_hist(4, smesh)
+
+        def synth_step(st):
+            x = samples.copy()
+            u = torch.cat(st[0](x, st[1])[0])
+            x[:] = 0              # the caller reuses its samples at once
+            return u
+
+        steps_equal(name, sharded_synth, synth_step)
     out["waited_for_the_card"] = waited
     emit(out)
     if any(waited.values()):
@@ -2893,10 +3236,11 @@ def _rates(tree: str) -> dict:
     process imports it from there), each over fresh decoders, the median
     of 3 after a warm-up: the 1080p single stream and the 64 streams
     (prefetch off and on), the sharded 8 streams on the card and on it
-    twice (the parse done first), the 1080p A/V decode's video frames,
-    `Audio.decode` and `BatchAudioDecoder` frames; with the peak device
-    memory of the timed passes, and one profiled pass of the 64-stream
-    and the sharded decodes."""
+    twice (the parse done first), the dense transport on the 1080p
+    fixture cut to 9 pictures (the Python parse included), the 1080p A/V
+    decode's video frames, `Audio.decode` and `BatchAudioDecoder` frames;
+    with the peak device memory of the timed passes, and one profiled
+    pass of the 64-stream, the sharded and the dense decodes."""
     import io
 
     import torch
@@ -2976,6 +3320,12 @@ def _rates(tree: str) -> dict:
             lambda: _sharded_decode(sh, geom, mesh, blobs, types, 16, km,
                                     ke),
             lambda got: count_streams(got[0]), profile=devices is None)
+    dense_cut = cuts[STREAM_CUTS.index(9)]
+    out["dense_1080p_cut"] = measured(
+        lambda: BatchVideoDecoder(dense_cut, window=16, transport="dense",
+                                  use_native=False,
+                                  device="cuda").decode_all(), len,
+        profile=True)
     out["interactive_1080p"] = measured(decode_av, lambda n: n)
     out["audio"] = measured(decode_audio, lambda n: n)
     out["batch_audio"] = measured(
@@ -3008,8 +3358,13 @@ def phase_turns(parent: str) -> dict:
     medians = {who: {k: statistics.median(t[k]["fps_median"] for t in turns
                                           if t["who"] == who)
                      for k in rates} for who in ("parent", "this")}
+    # Each profiled decode's h2d card time, turn by turn.
+    h2d_us = {k: {who: [t[k]["profiled_pass"].get("h2d_device_us")
+                        for t in turns if t["who"] == who]
+                  for who in ("parent", "this")}
+              for k in rates if "profiled_pass" in turns[0][k]}
     out = {"phase": "turns", "parent_tree": parent, "medians": medians,
-           "turns": turns}
+           "h2d_device_us": h2d_us, "turns": turns}
     emit(out)
     return out
 
@@ -3070,7 +3425,7 @@ def main() -> int:
         audio = phase_audio()
         phase_interactive_golden()
         interactive = phase_interactive_1080p()
-        phase_dense()
+        dense = phase_dense()
         sharded = phase_sharded_1080p()
         phase_transport()
         phase_streams()
@@ -3086,7 +3441,7 @@ def main() -> int:
         for name, out in (("e2e_1080p", e2e), ("recon_multi_1080p", multi),
                           ("multistream_1080p", streams),
                           ("sharded_1080p", sharded["meshes"]["card"]))}})
-    # The transport of the four paths: its own count of the checked pass,
+    # The transport of the five paths: its own count of the checked pass,
     # and where profiled, the h2d copies' card time, rate and overlap.
     prof_keys = ("h2d_device_us", "h2d_records", "h2d_pinned_us",
                  "h2d_gb_per_s", "h2d_under_kernels_share",
@@ -3104,7 +3459,8 @@ def main() -> int:
                           ("sharded_1080p", sharded["meshes"]["card"]),
                           ("sharded_1080p_card_twice",
                            sharded["meshes"]["card_twice"]),
-                          ("interactive_1080p", interactive))}})
+                          ("interactive_1080p", interactive),
+                          ("dense_1080p_cut", dense))}})
     k3_decode = multi["profiled_pass"]
 
     recon, pk = "mpeg_tpu_torch/csrc/recon.cu", "mpeg_tpu/ops/pallas_kernels.py"

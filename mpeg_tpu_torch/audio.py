@@ -121,6 +121,9 @@ class Audio:
         self._v = torch.zeros((2, 1024), dtype=torch.float32,
                               device=self.device)
         self.v_pos = 0
+        # A frame's samples in pinned host memory, int32 [36, 2, 32], and
+        # its numpy view.
+        self._staging = self._staging_np = None
 
         # Per-frame parse scratch.
         self.allocation = [[None] * 32 for _ in range(2)]
@@ -281,9 +284,18 @@ class Audio:
         return self.samples
 
     def _synthesize(self, samples_int: np.ndarray) -> None:
-        # One h2d copy, one K4 launch (the new ring is a new tensor), one
-        # d2h copy of the normalized PCM.
-        x = torch.from_numpy(samples_int).to(self.device)
+        # One h2d copy from this Audio's pinned buffer on the stream K4
+        # runs on, one K4 launch (the new ring is a new tensor), one d2h
+        # copy of the normalized PCM, which waits for both: the buffer is
+        # free again when this returns, so it needs no ring or gate.
+        from .parallel.batch import device_put, host_blob
+        if self._staging is None:
+            self._staging = host_blob(36 * 2 * 32 * 4, self.device) \
+                .view(torch.int32).view(36, 2, 32)
+            self._staging_np = self._staging.numpy()
+        self._staging_np[...] = samples_int
+        (x,), _ = device_put([self._staging], self.device,
+                             current_stream=True)
         pcm, ring, self.v_pos = cuda_kernels.synthesize_ring(
             x[None], self._v[None], self.v_pos, out="f32")
         self._v = ring[0]

@@ -6,7 +6,11 @@ synthesis per window (`ops.cuda_kernels.synthesize`: one K4 launch on a
 CUDA device, the plain `ops.filterbank` version on the CPU), carrying the
 last 15 DCT blocks.  The same launch normalizes with the exact IEEE
 quotient (`out_format="f32"`) or quantizes to S16 with the integer
-constant-divisor form (`"s16"`, `filterbank.s16_from_u`).
+constant-divisor form (`"s16"`, `filterbank.s16_from_u`).  Each window's
+samples are packed into a pinned host buffer of the decoder's
+`parallel.batch.HostRing` and copied asynchronously (`device_put`): with
+`out_device=True` no call waits for the card; otherwise the PCM's copy
+back is the one wait, as the reference's `np.asarray`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_kernels
+from .batch import HostRing
+
+_FRAME_BYTES = 36 * 2 * 32 * 4   # a frame's int32 subband samples
 
 
 def _sync(device: torch.device) -> None:
@@ -86,6 +93,7 @@ class BatchAudioDecoder:
             self._py = Audio(buf, parser="python", device="cpu")
 
         self._hist = None
+        self._ring = None   # HostRing of the window samples (dispatch only)
         self._ended = not streaming
         self._pending: list = []
         self.stats = stats
@@ -299,15 +307,22 @@ class BatchAudioDecoder:
         if self._hist is None:   # the last 15 DCT blocks, newest first
             self._hist = torch.zeros((1, 15, 2, 64), dtype=torch.float32,
                                      device=self.device)
+            self._ring = HostRing(self.device)
 
-        n = len(frames)
-        samples = np.zeros((self.window, 36, 2, 32), np.int32)
-        samples[:n] = frames
         # stats.detailed: split the device leg into h2d / synthesis / d2h
         # with explicit syncs (attribution mode).
         detailed = self.stats is not None and self.stats.detailed
         t0 = time.perf_counter()
-        xs = torch.from_numpy(samples.reshape(1, -1, 2, 32)).to(self.device)
+        # Packed straight into a host buffer of the ring (pinned for the
+        # card, written again only once its last copy has completed), the
+        # tail past n frames zeroed as the reference's np.zeros window.
+        n = len(frames)
+        host = self._ring.take(self.window * _FRAME_BYTES)
+        samples = host.numpy().view(np.int32).reshape(self.window, 36, 2, 32)
+        samples[:n] = frames
+        samples[n:] = 0
+        xs, = self._ring.send([host])
+        xs = xs.view(torch.int32).view(1, -1, 2, 32)
         if detailed:
             _sync(self.device)
             t1 = time.perf_counter()

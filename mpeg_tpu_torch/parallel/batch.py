@@ -31,8 +31,10 @@ copy's event and the host blob recycled once that event has completed
 (`host_blob`, `device_put`, `HostRing`; `BatchVideoDecoder._reap_blobs`).
 The dense transport (`stack_plans` + `DenseWindowDecoder`, which
 `make_dense_scan_decoder` builds) ships the stacked plan arrays as they
-are (~12.5 MB a 1080p picture) and skips steps 1-2; it is the readable
-oracle, fed by the Python parse.
+are (~13.0 MB a 1080p picture), in flight the same way from a ring of at
+most `_DENSE_RING` pinned stacks (`BatchVideoDecoder` stacks each window
+straight into one), and skips steps 1-2; it is the readable oracle, fed
+by the Python parse.
 """
 
 from __future__ import annotations
@@ -64,23 +66,70 @@ _NB_CLASS_REP = (0, 1, 2, 10)
 _PLAN_FIELDS = ("nblocks", "intra_blk", "src_sel", "mv_h", "mv_v")
 
 
-def stack_plans(plans, geom: FrameGeometry, window: int):
+# A dense window stack's fields in `stack_plans`'s order, each with its
+# per-picture shape after the macroblock axis (None: one value a picture).
+# The six `DenseWindowDecoder` reads come first; the flags stay last.
+_STACK_FIELDS = (("coeffs", (6, 64)), ("nblocks", (6,)), ("intra_blk", (6,)),
+                 ("src_sel", ()), ("mv_h", ()), ("mv_v", ()),
+                 ("is_ref", None), ("is_noop", None))
+
+
+def stack_layout(geom: FrameGeometry, window: int):
+    """The dense window stack in one host buffer: ({field: (byte offset,
+    shape)}, total bytes).  Every field is int32 [window, ...] and starts
+    16-byte aligned (K1 reads coefficients 16 bytes and block counts 8
+    bytes at a time)."""
+    mb = geom.mb_size
+    offs, pos = {}, 0
+    for name, tail in _STACK_FIELDS:
+        shape = (window,) if tail is None else (window, mb, *tail)
+        offs[name] = (pos, shape)
+        pos += 4 * int(np.prod(shape))
+        pos = (pos + 15) & ~15
+    return offs, pos
+
+
+def stack_views(buf, geom: FrameGeometry, window: int) -> dict:
+    """The typed int32 fields of a dense window stack laid out in `buf`
+    (`stack_layout`): numpy views of a uint8 array, or, for a uint8
+    tensor (the stack on the device), tensor views.  They share its
+    memory."""
+    offs, total = stack_layout(geom, window)
+    if isinstance(buf, torch.Tensor):
+        uint8, int32 = buf.dtype == torch.uint8, torch.int32
+    else:
+        buf = np.asarray(buf)
+        uint8, int32 = buf.dtype == np.uint8, np.int32
+    if not uint8 or buf.ndim != 1 or buf.shape[0] < total:
+        raise ValueError(f"a stack of {window} pictures needs uint8 "
+                         f"[{total}], got {buf.dtype} {tuple(buf.shape)}")
+    return {k: buf[o:o + 4 * int(np.prod(shape))].view(int32)
+            .reshape(shape) for k, (o, shape) in offs.items()}
+
+
+def stack_plans(plans, geom: FrameGeometry, window: int,
+                out: np.ndarray = None):
     """Stack (plan, picture_type) pairs into dense scan inputs, padding
-    with no-op steps (a no-op leaves the carry untouched)."""
+    with no-op steps (a no-op leaves the carry untouched).
+
+    Without `out`, a dict of fresh int32 arrays, as the reference returns
+    it.  `out`, a uint8 array of at least `stack_layout`'s total bytes (a
+    `host_blob`'s view, say), is written in place and the dict holds
+    views of it (`stack_views`): the stack then needs no staging copy
+    before its transfer.  Padding steps are written as the reference
+    writes them (zeros, is_noop 1, is_ref 0), so a reused buffer holds
+    the same bytes as a fresh one."""
     n = len(plans)
     if n > window:
         raise ValueError(f"{n} plans do not fit a window of {window}")
-    mb = geom.mb_size
-    out = {
-        "coeffs": np.zeros((window, mb, 6, 64), np.int32),
-        "nblocks": np.zeros((window, mb, 6), np.int32),
-        "intra_blk": np.zeros((window, mb, 6), np.int32),
-        "src_sel": np.zeros((window, mb), np.int32),
-        "mv_h": np.zeros((window, mb), np.int32),
-        "mv_v": np.zeros((window, mb), np.int32),
-        "is_ref": np.zeros(window, np.int32),
-        "is_noop": np.ones(window, np.int32),
-    }
+    if out is None:
+        offs, _ = stack_layout(geom, window)
+        out = {k: np.zeros(shape, np.int32) for k, (_o, shape) in offs.items()}
+        out["is_noop"][:] = 1
+    else:
+        out = stack_views(out, geom, window)
+        for name, _tail in _STACK_FIELDS:
+            out[name][n:] = 1 if name == "is_noop" else 0
     for i, (plan, ptype) in enumerate(plans):
         out["coeffs"][i] = plan.coeffs
         out["nblocks"][i] = plan.nblocks
@@ -577,25 +626,52 @@ def _run_window_steps(carry, plan, flags, geom: FrameGeometry, recon,
 class DenseWindowDecoder(nn.Module):
     """Decode one window of stacked dense plans (reference: batch.py
     make_dense_scan_decoder): (carry, stack_plans(...)) -> (carry,
-    displays), as `WindowDecoder` does for a blob.  The stacked numpy
-    arrays are copied to the carry's device; one `recon` launch a valid
-    step, none for the no-op steps.  Displays are uint8 [window,
-    total_size] (RGBA: [window, H, W, 4])."""
+    displays), as `WindowDecoder` does for a blob.  The stack goes to the
+    carry's device in one asynchronous copy from a pinned buffer of this
+    module's `HostRing` (at most `_DENSE_RING` window stacks), then one
+    `recon` launch a valid step, none for the no-op steps.  Displays are
+    uint8 [window, total_size] (RGBA: [window, H, W, 4])."""
 
     def __init__(self, geom: FrameGeometry, emit_rgba: bool = False,
                  recon=cuda_kernels.reconstruct_picture):
         super().__init__()
         self.geom, self.emit_rgba, self.recon = geom, emit_rgba, recon
+        self._ring = None
 
-    def forward(self, carry, plans):
+    def ring(self, device) -> "HostRing":
+        """The module's host buffers for stacks bound for `device`."""
+        device = explicit_device(device)     # "cuda" is "cuda:<current>"
+        if self._ring is None or self._ring.device != device:
+            self._ring = HostRing(device, cap=_DENSE_RING)
+        return self._ring
+
+    def forward(self, carry, plans, host: torch.Tensor = None):
+        """`plans` as `stack_plans` gives them.  `host`: the buffer
+        `ring(device).take` returned last, which `plans` were stacked
+        into (`stack_plans(..., out=host.numpy())`), sent as it is;
+        without it the arrays are staged into a buffer of the ring.
+        Either way the caller may write its arrays again once the call
+        returns, and the call waits for no device."""
         dev = carry[0].device
-        is_ref = np.asarray(plans["is_ref"], np.int32)
-        run = 1 - np.asarray(plans["is_noop"], np.int32)
-        flags = (is_ref & 1) | ((run & 1) << 1)
-        plan = [torch.as_tensor(np.asarray(plans[k])).to(dev)
-                for k in ("coeffs", *_PLAN_FIELDS)]
+        ring = self.ring(dev)
+        window = np.asarray(plans["is_noop"]).shape[0]
+        flags = _dense_flags(plans)
+        if host is None:
+            fields, = put_stacks(ring, [plans], self.geom)
+        else:
+            dev_stack, = ring.send([host])
+            fields = stack_views(dev_stack, self.geom, window)
+        plan = [fields[k] for k in ("coeffs", *_PLAN_FIELDS)]
         return _run_window_steps(carry, plan, flags, self.geom, self.recon,
                                 self.emit_rgba)
+
+
+def _dense_flags(plans) -> np.ndarray:
+    """The host's per-step flags of stacked dense plans (any leading
+    axes), as a blob carries them: bit0 reference picture, bit1 valid."""
+    is_ref = np.asarray(plans["is_ref"], np.int32)
+    run = 1 - np.asarray(plans["is_noop"], np.int32)
+    return (is_ref & 1) | ((run & 1) << 1)
 
 
 def make_dense_scan_decoder(geom: FrameGeometry, emit_rgba: bool = False, *,
@@ -603,7 +679,10 @@ def make_dense_scan_decoder(geom: FrameGeometry, emit_rgba: bool = False, *,
     """The dense window decode on `device` ("cuda", the default, raises
     without a card; "cpu" runs the plain versions):
     (carry, stack_plans(...)) -> (carry, displays).  carry is three flat
-    uint8 [total_size] frames on `device`."""
+    uint8 [total_size] frames on `device`.  The stacked arrays are staged
+    into the decoder's pinned ring and copied asynchronously: the call
+    waits for no card, and the caller may reuse its arrays as soon as it
+    returns."""
     dev = explicit_device(device)
     dec = DenseWindowDecoder(geom, emit_rgba).to(dev)
 
@@ -703,8 +782,9 @@ def copy_stream(device) -> "torch.cuda.Stream":
     return stream
 
 
-def device_put(parts, device):
-    """Copy host uint8 tensors to `device`; returns (device tensors, gate).
+def device_put(parts, device, current_stream: bool = False):
+    """Copy host tensors (uint8 slices of a `host_blob`, or typed views
+    of one) to `device`; returns (device tensors, gate).
 
     On a CUDA device every part must be pinned (a `host_blob` or a slice
     of one: a pageable part raises, and nothing copies in its place).
@@ -719,28 +799,38 @@ def device_put(parts, device):
     asynchronous copy proves the bytes were read.  The call never waits
     for the device.
 
+    With `current_stream` the copies go on the device's current stream
+    and the gate is None: for a caller that waits on that stream before
+    it writes its parts again (`Audio`, which waits for each frame's
+    PCM), for whom the side stream's switch, event and `record_stream`
+    cost more host time than the copy itself (`chip_smoke.py`'s `audio`
+    phase times both).
+
     On the CPU the parts are cloned (the plain synchronous copy) and the
     gate is None: the copy is done when the call returns.  Each call adds
     its copies to `transport_counts`."""
     dev = explicit_device(device)
     if dev.type != "cuda":
-        outs = [p.clone() for p in parts]
-        gate = None
+        outs, gate = [p.clone() for p in parts], None
     else:
         for p in parts:
             if p.device.type != "cpu" or not p.is_pinned():
                 raise ValueError(
-                    f"device_put to {dev}: a host part of {p.numel()} bytes "
-                    "is not pinned (copy it into a host_blob)")
-        compute = torch.cuda.current_stream(dev)
-        side = copy_stream(dev)
-        with torch.cuda.stream(side):
-            outs = [p.to(dev, non_blocking=True) for p in parts]
-            gate = torch.cuda.Event()
-            gate.record(side)
-        for out in outs:
-            out.record_stream(compute)
-        compute.wait_event(gate)
+                    f"device_put to {dev}: a host part of "
+                    f"{p.numel() * p.element_size()} bytes is not pinned "
+                    "(copy it into a host_blob)")
+        if current_stream:
+            outs, gate = [p.to(dev, non_blocking=True) for p in parts], None
+        else:
+            compute = torch.cuda.current_stream(dev)
+            side = copy_stream(dev)
+            with torch.cuda.stream(side):
+                outs = [p.to(dev, non_blocking=True) for p in parts]
+                gate = torch.cuda.Event()
+                gate.record(side)
+            for out in outs:
+                out.record_stream(compute)
+            compute.wait_event(gate)
         transport_counts.pinned_copies += len(parts)
     transport_counts.copies += len(parts)
     transport_counts.bytes += sum(p.numel() * p.element_size() for p in parts)
@@ -785,23 +875,29 @@ def _stage(part: torch.Tensor, a: np.ndarray) -> None:
 # At most this many staging buffers a HostRing: past it, `put` waits for
 # the oldest copy instead of pinning more memory.
 _MAX_RING = 8
+# At most this many window stacks in a dense decoder's ring, a device: a
+# 1080p stack of 16 pictures pins 268 MB (208 MB rounded up).
+_DENSE_RING = 3
 
 
 class HostRing:
     """Staging buffers for host arrays that the caller keeps (the sharded
     decoder's blobs, the interactive picture's packed blob, a round's K1
-    step tables): `put` copies the arrays into a `host_blob` of the ring
-    and from there to the device through `device_put`.  A buffer is
-    written again only once the gate of the copy that last read it has
-    completed; the ring starts with two buffers in rotation and adds one
-    (up to `_MAX_RING`, then waits for the oldest) only when every buffer
-    is still being read.  The caller may reuse its arrays as soon as
-    `put` returns.  On the CPU, `put` is `device_put`'s plain copy of the
-    arrays themselves."""
+    step tables, MP2 samples, dense window stacks): `put` copies the
+    arrays into a `host_blob` of the ring and from there to the device
+    through `device_put`.  A buffer is written again only once the gate of
+    the copy that last read it has completed; the ring starts with two
+    buffers in rotation and adds one (up to `cap`, then waits for the
+    oldest) only when every buffer is still being read.  A buffer is
+    allocated at a power-of-two bucket of the bytes asked for (torch's
+    pinned host allocator rounds to one anyway).  The caller may reuse
+    its arrays as soon as `put` returns.  On the CPU the buffers are
+    plain memory and `device_put` clones them, the same steps."""
 
-    def __init__(self, device):
+    def __init__(self, device, cap: int = _MAX_RING):
         self.device = explicit_device(device)
-        self._bufs = [[None, None], [None, None]]   # [host_blob, gate]
+        self.cap = max(cap, 1)
+        self._bufs = [[None, None] for _ in range(min(2, self.cap))]
         self._next = 0
         self._taken = None   # the entry `take` handed out last
 
@@ -813,7 +909,7 @@ class HostRing:
         free = [i for i in order if _gate_done(self._bufs[i][1])]
         if free:
             i = free[0]
-        elif n < _MAX_RING:
+        elif n < self.cap:
             i = self._next
             self._bufs.insert(i, [None, None])
             n += 1
@@ -844,10 +940,6 @@ class HostRing:
         """Device tensors holding the numpy `arrays` (their dtypes and
         shapes)."""
         arrays = [np.ascontiguousarray(a) for a in arrays]
-        if self.device.type != "cuda":
-            outs, _ = device_put([torch.from_numpy(a) for a in arrays],
-                                 self.device)
-            return outs
         buf = self.take(sum(a.nbytes for a in arrays))
         parts, off = [], 0
         for a in arrays:
@@ -858,6 +950,36 @@ class HostRing:
         outs = self.send(parts)
         return [o.view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
                 .view(a.shape) for o, a in zip(outs, arrays)]
+
+
+def put_stacks(ring: HostRing, stacks, geom: FrameGeometry) -> list:
+    """Dense window stacks on the ring's device, in one `device_put`.
+
+    Each of `stacks` is a dict of stacked plan arrays as `stack_plans`
+    gives them, its leading axes (one window, or [S, T] streams by steps,
+    stream-major) its pictures; each is staged into the stack layout of P
+    pictures (`stack_layout`) in one buffer of `ring` and copied as one
+    part.  Returns each stack's device fields (`stack_views`), every
+    field with a leading axis of its P pictures."""
+    laid = []
+    for st in stacks:
+        p = int(np.asarray(st["is_noop"]).size)
+        laid.append((p, *stack_layout(geom, p)))
+    buf = ring.take(sum(total for _p, _offs, total in laid))
+    parts, off = [], 0
+    for st, (p, offs, total) in zip(stacks, laid):
+        part = buf[off:off + total]
+        for name, (o, shape) in offs.items():
+            a = np.ascontiguousarray(st[name], np.int32)
+            if a.size != int(np.prod(shape)):
+                raise ValueError(f"{name}: {a.shape} does not hold "
+                                 f"{shape[0]} pictures of {geom.mb_size} "
+                                 "macroblocks")
+            _stage(part[o:o + a.nbytes], a)
+        parts.append(part)
+        off += total
+    return [stack_views(d, geom, p)
+            for d, (p, _offs, _total) in zip(ring.send(parts), laid)]
 
 
 class BatchVideoDecoder:
@@ -872,7 +994,8 @@ class BatchVideoDecoder:
     reconstruct kernel; on "cpu" the plain PyTorch version runs.  With
     `emit_rgba=True` displayed frames are [H, W, 4] uint8 RGBA tensors on
     `device`.  `transport="dense"` ships stacked dense plans
-    (`stack_plans`) instead of window blobs and needs the Python parse
+    (`stack_plans`, into a pinned buffer of a ring of at most
+    `_DENSE_RING`) instead of window blobs and needs the Python parse
     (`use_native=False`).
     """
 
@@ -1252,9 +1375,14 @@ class BatchVideoDecoder:
             self._blob_inflight.append(
                 (gate, blob, caps, fill if fill is not None else caps))
         else:
-            stacked = stack_plans(plans, self.geom, self.window)
-            self._carry, disps = self._scan(self._carry, stacked)
-            nbytes = sum(a.nbytes for a in stacked.values())
+            # Stacked straight into a pinned buffer of the module's ring
+            # (no staging copy), written again only once its gate has
+            # completed.
+            nbytes = stack_layout(self.geom, self.window)[1]
+            host = self._scan.ring(self.device).take(nbytes)
+            stacked = stack_plans(plans, self.geom, self.window,
+                                  out=host.numpy())
+            self._carry, disps = self._scan(self._carry, stacked, host=host)
         t_disp = time.perf_counter() - t0
 
         if self.stats is not None:

@@ -16,16 +16,19 @@ history are lists with one tensor a shard, and `torch.cat` of a list
 
 Transports mirror `parallel.batch`: window-pool blobs, one a stream
 (`make_sharded_blob_decoder`), and stacked dense plans
-(`make_sharded_scan_decoder`, the readable oracle).  Audio shards the
-same way (`make_sharded_audio_synth`, one K4 launch a shard).
+(`make_sharded_scan_decoder`, the readable oracle); each shard is one
+stream-batched program, as the reference's `vmap` over its streams.
+Audio shards the same way (`make_sharded_audio_synth`, one K4 launch a
+shard).
 
 Every shard's work is enqueued before any result is waited on, so that
-shards on several cards overlap.  The blob decoder stages the caller's
-blobs into pinned host buffers of its own (a `batch.HostRing` a device:
-two in rotation, each written again only once the copy that last read
-it has completed) and copies each shard asynchronously on its device's
-copy stream (`batch.device_put`): nothing waits for a card, and the
-caller may reuse its blobs as soon as a call returns.
+shards on several cards overlap.  Each decoder stages the caller's
+blobs, plans or samples into pinned host buffers of its own (a
+`batch.HostRing` a device: two in rotation, each written again only
+once the copy that last read it has completed) and copies each shard
+asynchronously on its device's copy stream (`batch.device_put`):
+nothing waits for a card, and the caller may reuse its arrays as soon
+as a call returns.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ from ..device import explicit_device
 from ..ops.cuda_kernels import synthesize
 from ..ops.video_recon import FrameGeometry
 from .batch import (
-    _PLAN_FIELDS, DenseWindowDecoder, HostRing, blob_layout, blob_split,
-    densify_unpack, pack_plans_blob, stack_plans,
+    _DENSE_RING, _PLAN_FIELDS, HostRing, _dense_flags, blob_layout,
+    blob_split, densify_unpack, pack_plans_blob, put_stacks, stack_plans,
 )
 from .multistream import GlobalWindowDecoder
 
@@ -103,6 +106,14 @@ def _reduce_count(n: int, mesh: Mesh) -> torch.Tensor:
     return total
 
 
+def _shards_by_device(layout) -> dict:
+    """device -> the indices of its shards in `layout` (`Mesh.split`)."""
+    on_device = {}
+    for i, (d, _a, _b) in enumerate(layout):
+        on_device.setdefault(d, []).append(i)
+    return on_device
+
+
 def zero_carry(geom: FrameGeometry, n_streams: int, mesh: Mesh):
     """(current, forward, backward): three distinct lists, each with one
     zeroed uint8 [S_d, total_size] tensor a shard, on its device."""
@@ -161,9 +172,7 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
         flags = np.ascontiguousarray(
             blobs[:, flags_off:flags_off + 4 * window]).view(np.int32)
         # Every shard's copy first, one staging buffer a device.
-        on_device = {}
-        for i, (d, _a, _b) in enumerate(layout):
-            on_device.setdefault(d, []).append(i)
+        on_device = _shards_by_device(layout)
         dev_blobs = [None] * len(layout)
         for d, shard_ids in on_device.items():
             if d not in staging:
@@ -208,29 +217,53 @@ def _gather(outs):
 
 def make_sharded_scan_decoder(geom: FrameGeometry, mesh: Mesh):
     """The dense variant: decode(carry, plans) with `plans` the stacked
-    dense dict [S, T, ...] (`stack_stream_plans`), stream-major.  Each
-    stream of a shard runs the dense window module
-    (`batch.DenseWindowDecoder`: one K1 launch a valid picture).  Returns
-    (carry', displays, total_px) as the blob decoder does."""
-    dense = {}   # device -> DenseWindowDecoder
+    dense dict [S, T, ...] (`stack_stream_plans`), stream-major, on the
+    host.  Returns (carry', displays, total_px) as the blob decoder does.
+
+    As the reference vmaps its scan over a shard's streams, each shard is
+    one program: its rows of every field are staged, in the stack layout
+    of its S_d * T pictures (`batch.put_stacks`), into one pinned buffer
+    of the decoder's ring for its device (at most `_DENSE_RING` buffers;
+    one ring a device, however often the mesh lists it) and copied
+    asynchronously as one part; then one stream-batched K1 launch a step
+    over its streams (`GlobalWindowDecoder.reconstruct`, as the blob
+    decoder runs it, with nothing to densify).  The call waits for no
+    card, and `plans` may be reused as soon as it returns."""
+    shards = {}   # (device, streams, steps) -> GlobalWindowDecoder
+    staging = {}  # device -> HostRing of its shards' stacks
 
     def decode(carry, plans):
-        n = np.asarray(plans["is_noop"]).shape[0]
+        flags = _dense_flags(plans)
+        if flags.ndim != 2:
+            raise ValueError(f"plans: expected [S, T, ...] fields, got "
+                             f"is_noop of shape {flags.shape}")
+        n, steps = flags.shape
         if n != _n_streams(carry):
             raise ValueError(f"plans of {n} streams for "
                              f"{_n_streams(carry)} carried streams")
+        layout = mesh.split(n)
+        # Every shard's copy first, one staging buffer a device.
+        on_device = _shards_by_device(layout)
+        fields = [None] * len(layout)
+        for d, shard_ids in on_device.items():
+            if d not in staging:
+                staging[d] = HostRing(d, cap=_DENSE_RING)
+            copies = put_stacks(staging[d], [
+                {k: v[layout[i][1]:layout[i][2]] for k, v in plans.items()}
+                for i in shard_ids], geom)
+            for i, f in zip(shard_ids, copies):
+                fields[i] = f
         outs = []
-        for i, (d, a, b) in enumerate(mesh.split(n)):
-            if d not in dense:
-                dense[d] = DenseWindowDecoder(geom).to(d)
-            per_stream = [dense[d](
-                tuple(c[i][s - a] for c in carry),
-                {k: v[s] for k, v in plans.items()}) for s in range(a, b)]
-            outs.append((
-                tuple(torch.stack([c[k] for c, _ in per_stream])
-                      for k in range(3)),
-                torch.stack([disp for _, disp in per_stream])))
-        px = int(np.sum(1 - np.asarray(plans["is_noop"]))) * geom.frame_size
+        for i, (d, a, b) in enumerate(layout):
+            key = (d, b - a, steps)
+            if key not in shards:
+                # reconstruct reads no blob: the smallest pool buckets.
+                shards[key] = GlobalWindowDecoder(
+                    geom, b - a, steps, 1, 1, chunks=1).to(d)
+            plan = [fields[i][k] for k in ("coeffs", *_PLAN_FIELDS)]
+            outs.append(_pooled_window(shards[key], [c[i] for c in carry],
+                                       plan, flags[a:b].reshape(-1)))
+        px = int(np.count_nonzero(flags & 2)) * geom.frame_size
         return _gather(outs) + (_reduce_count(px, mesh),)
 
     return decode
@@ -262,19 +295,34 @@ def make_sharded_audio_synth(mesh: Mesh):
     whole frames, see `filterbank.synthesize_window`); `hist`, `u` and
     `hist'` lists with one tensor a shard (f32 [S_d, 15, 2, 64] and
     [S_d, T, 2, 32]); `total` the int64 count of output samples a channel
-    over every stream, summed over the process group.  Each shard runs
-    one K4 launch over its streams (`cuda_kernels.synthesize`; on the CPU
-    the plain `filterbank.synthesize_window` a stream).  Normalization
-    stays with `filterbank.finalize`, which divides by a tensor on u's
-    device (the exact IEEE quotient)."""
+    over every stream, summed over the process group.  Each device's
+    shards are staged into one pinned buffer of the synth's
+    `batch.HostRing` for that device and each shard's rows copied
+    asynchronously, as the blob decoder's are; each shard then runs one
+    K4 launch over its streams (`cuda_kernels.synthesize`; on the CPU the
+    plain `filterbank.synthesize_window` a stream).  The call waits for
+    no card, and `samples` may be reused as soon as it returns.
+    Normalization stays with `filterbank.finalize`, which divides by a
+    tensor on u's device (the exact IEEE quotient)."""
+
+    staging = {}  # device -> HostRing of its shards' samples
 
     def synth(samples, hist):
-        samples = torch.as_tensor(np.asarray(samples, np.int32))
-        if samples.dim() != 4 or tuple(samples.shape[2:]) != (2, 32):
+        samples = np.asarray(samples, np.int32)
+        if samples.ndim != 4 or samples.shape[2:] != (2, 32):
             raise ValueError(f"samples: expected [S, T, 2, 32], got "
-                             f"{tuple(samples.shape)}")
+                             f"{samples.shape}")
         layout = mesh.split(samples.shape[0])
-        dev_samples = [samples[a:b].to(d) for d, a, b in layout]
+        # Every shard's copy first, one staging buffer a device.
+        on_device = _shards_by_device(layout)
+        dev_samples = [None] * len(layout)
+        for d, shard_ids in on_device.items():
+            if d not in staging:
+                staging[d] = HostRing(d)
+            copies = staging[d].put([samples[layout[i][1]:layout[i][2]]
+                                     for i in shard_ids])
+            for i, x in zip(shard_ids, copies):
+                dev_samples[i] = x
         us, hists = [], []
         for x, h in zip(dev_samples, hist):
             u, h = synthesize(x, h)

@@ -1,8 +1,11 @@
 """The window transport on the card (`parallel.batch.device_put`): host
-blobs and slots are pinned, a pageable part is refused, no copy on the
-four paths (`BatchVideoDecoder`, `MultiStreamVideoDecoder`, the sharded
-decode, `Video`) makes the host wait for the card, and under an adversary
-that holds the compute stream and the copy stream with
+blobs, slots, dense stacks and MP2 samples are pinned, a pageable part is
+refused, no copy on the blob paths (`BatchVideoDecoder`,
+`MultiStreamVideoDecoder`, the sharded decode, `Video`), the dense paths
+(`BatchVideoDecoder(transport="dense")`, `make_dense_scan_decoder`, the
+sharded dense decode) or the MP2 paths (`BatchAudioDecoder(out_device=
+True)`, the sharded synthesis) makes the host wait for the card, and
+under an adversary that holds the compute stream and the copy stream with
 `torch.cuda._sleep` before every window, so that copies and kernels are
 in flight while the prefetch thread wants a free blob, every path stays
 equal to the C++ host decoder frame for frame.  Marked `cuda`: each test
@@ -19,7 +22,8 @@ import torch
 
 import mpeg_tpu_torch as mpeg
 from mpeg_tpu_torch.native import NativeHostDecoder
-from mpeg_tpu_torch.parallel import BatchVideoDecoder, MultiStreamVideoDecoder
+from mpeg_tpu_torch.parallel import (BatchAudioDecoder, BatchVideoDecoder,
+                                     MultiStreamVideoDecoder)
 from mpeg_tpu_torch.parallel import batch as tb
 from mpeg_tpu_torch.parallel import sharding as sh
 from mpeg_tpu_torch.tables import PICTURE_TYPE_B
@@ -276,3 +280,224 @@ def staging_rings(decode) -> dict:
     closure."""
     names = decode.__code__.co_freevars
     return decode.__closure__[names.index("staging")].cell_contents
+
+
+def _native_plans(data):
+    """(geom, [(plan, picture type)]) of `data` from the C++ parser."""
+    from mpeg_tpu_torch.native import NativeVideoParser
+
+    parser, plans = NativeVideoParser(data), []
+    while (item := parser.parse_next_plan()) is not None:
+        plans.append(item)
+    return parser.geom(), plans
+
+
+def _dense_windows(per_stream, geom, window):
+    """Each window's stacked dense plans [S, T, ...] and picture types."""
+    n_win = -(-max(len(p) for p in per_stream) // window)
+    for w in range(n_win):
+        part = [p[w * window:(w + 1) * window] for p in per_stream]
+        yield sh.stack_stream_plans(part, geom, window), \
+            [[t for _, t in p] for p in part]
+
+
+def _stream_frames(windows, decode, carry, n):
+    """Every stream's displayed frames through a sharded decoder, the
+    reference delay and the end-of-stream flush applied."""
+    frames = [[] for _ in range(n)]
+    has_ref, last = [False] * n, [0] * n
+    for stacked, types in windows:
+        carry, disps, _px = decode(carry, stacked)
+        disps = torch.cat(disps)
+        for s in range(n):
+            for i, t in enumerate(types[s]):
+                last[s] = t
+                if t == PICTURE_TYPE_B or has_ref[s]:
+                    frames[s].append(disps[s, i])
+                else:
+                    has_ref[s] = True
+    bwd = torch.cat(carry[2])
+    for s in range(n):
+        if has_ref[s] and last[s] != PICTURE_TYPE_B:
+            frames[s].append(bwd[s])
+    return frames
+
+
+def _python_parse(data):
+    buf = mpeg.Buffer(io.BytesIO(data))
+    buf.set_load_callback(buf.load_reader_callback)
+    return buf
+
+
+def test_dense_and_audio_buffers_are_pinned():
+    """The dense ring's stacks and `Audio`'s buffer are pinned, and every
+    copy of the dense and MP2 paths is counted as pinned."""
+    dev = _card()
+    es = ES.read_bytes()
+    tb.reset_transport_counts()
+    dec = BatchVideoDecoder(_python_parse(es), window=4, transport="dense",
+                            use_native=False, device="cuda")
+    assert dec.decode_window()
+    ring = dec._scan._ring
+    for _ in range(4):
+        assert dec.decode_window()
+    assert dec._scan._ring is ring           # one ring for the decoder
+    bufs = [b for b, _g in ring._bufs if b is not None]
+    assert 2 <= len(bufs) <= tb._DENSE_RING
+    assert all(b.is_pinned() for b in bufs)
+    audio = mpeg.Audio(_python_parse(TESTDATA.joinpath("test.mp2")
+                                     .read_bytes()), device="cuda")
+    assert audio.decode() is not None
+    assert audio._staging.is_pinned()
+    torch.cuda.synchronize(dev)
+    counts = tb.transport_counts
+    assert counts.copies == counts.pinned_copies == 6
+
+
+def test_new_paths_do_not_block_the_host():
+    """With both streams held, one more window or call of the dense
+    decoder, the dense scan decoder, the sharded dense decoder (on the
+    card and on it twice), `BatchAudioDecoder(out_device=True)` and the
+    sharded MP2 synthesis returns while the held work is still pending;
+    each equals the same inputs run with nothing held."""
+    dev = _card()
+    es = ES.read_bytes()
+    frames = {}
+    for held in (False, True):
+        dec = BatchVideoDecoder(_python_parse(es), window=4,
+                                transport="dense", use_native=False,
+                                device="cuda")
+        assert dec.decode_window()
+        torch.cuda.synchronize()
+        if held:
+            _hold(dev)
+        frames[held] = [f.clone() for f in dec.decode_window()]
+        if held:
+            assert _busy(dev), "the dense BatchVideoDecoder waited"
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*frames.values()))
+
+    geom, plans = _native_plans(es)
+    stacked = [tb.stack_plans(plans[a:a + 8], geom, 8) for a in (0, 8)]
+    out = {}
+    for held in (False, True):
+        scan = tb.make_dense_scan_decoder(geom, device="cuda")
+        carry = tuple(torch.zeros(geom.total_size, dtype=torch.uint8,
+                                  device=dev) for _ in range(3))
+        carry, _d = scan(carry, stacked[0])
+        torch.cuda.synchronize()
+        if held:
+            _hold(dev)
+        out[held] = scan(carry, stacked[1])[1]
+        if held:
+            assert _busy(dev), "make_dense_scan_decoder waited"
+        torch.cuda.synchronize()
+    assert torch.equal(out[False], out[True])
+
+    windows = list(_dense_windows([plans[:16], plans[:13]], geom, 8))
+    for devices in (None, [str(dev), str(dev)]):
+        got = {}
+        for held in (False, True):
+            mesh = sh.make_mesh(devices)
+            decode = sh.make_sharded_scan_decoder(geom, mesh)
+            carry, _d, _px = decode(sh.zero_carry(geom, 2, mesh),
+                                    windows[0][0])
+            torch.cuda.synchronize()
+            if held:
+                _hold(dev)
+            got[held] = decode(carry, windows[1][0])[1]
+            if held:
+                assert _busy(dev), f"the sharded dense decode on " \
+                    f"{mesh.devices} waited"
+            torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*got.values()))
+
+    mp2 = TESTDATA.joinpath("test.mp2").read_bytes()
+    pcm = {}
+    for held in (False, True):
+        adec = BatchAudioDecoder(mp2, window=32, out_device=True,
+                                 device="cuda")
+        adec.decode_window()
+        torch.cuda.synchronize()
+        if held:
+            _hold(dev)
+        pcm[held] = adec.decode_window()
+        if held:
+            assert _busy(dev), "BatchAudioDecoder(out_device=True) waited"
+        torch.cuda.synchronize()
+    assert torch.equal(pcm[False], pcm[True])
+
+    from mpeg_tpu_torch.native import NativeAudioParser
+
+    parser, sub = NativeAudioParser(mp2), []
+    while (f := parser.parse_next_frame()) is not None:
+        sub.append(f)
+    samples = np.stack([np.asarray(sub[4 * s:4 * s + 32], np.int32)
+                        .reshape(-1, 2, 32) for s in range(4)])
+    for devices in (None, [str(dev), str(dev)]):
+        u = {}
+        for held in (False, True):
+            mesh = sh.make_mesh(devices)
+            synth = sh.make_sharded_audio_synth(mesh)
+            hist = sh.zero_audio_hist(4, mesh)
+            torch.cuda.synchronize()
+            if held:
+                _hold(dev)
+            x = samples.copy()
+            u[held] = torch.cat(synth(x, hist)[0])
+            x[:] = 0                 # the caller reuses its samples at once
+            if held:
+                assert _busy(dev), f"the sharded synthesis on " \
+                    f"{mesh.devices} waited"
+            torch.cuda.synchronize()
+        assert torch.equal(u[False].view(torch.int32),
+                           u[True].view(torch.int32))
+
+
+def test_adversary_dense_paths_1080p():
+    """The 1080p fixture cut to 9 pictures through the dense
+    `BatchVideoDecoder` at window 4, and four streams of it (32, 25, 32 and
+    17 pictures) through the sharded dense decoder on the card listed
+    twice at window 8, both streams held before every window or call and
+    the caller's stacks overwritten after each call: every frame equal
+    to the C++ host decoder's, K1 once a step a shard."""
+    from mpeg_tpu_torch.ops import cuda_kernels
+
+    dev = _card()
+    data = FIXTURE_1080P.read_bytes()
+    cut, = _cuts(data, (9,))
+    dec = BatchVideoDecoder(_python_parse(cut), window=4, transport="dense",
+                            use_native=False, device="cuda")
+    frames = []
+    while True:
+        _hold(dev)
+        got = dec.decode_window()
+        if not got:
+            break
+        frames.extend(got)
+    torch.cuda.synchronize()
+    fs = dec.geom.frame_size
+    _assert_frames(frames, _host_frames(cut, fs), fs, "dense 1080p cut")
+    assert len(dec._scan._ring._bufs) <= tb._DENSE_RING
+
+    cuts = _cuts(data, (None, 25, None, 17))
+    parsed = [_native_plans(c) for c in cuts]
+    geom = parsed[0][0]
+    mesh = sh.make_mesh([str(dev), str(dev)])
+    decode = sh.make_sharded_scan_decoder(geom, mesh)
+
+    def held_decode(carry, stacked):
+        _hold(dev)
+        got = decode(carry, stacked)
+        for v in stacked.values():
+            v[...] = -1
+        return got
+
+    cuda_kernels.reset_launches()
+    frames = _stream_frames(_dense_windows([p for _, p in parsed], geom, 8),
+                            held_decode, sh.zero_carry(geom, 4, mesh), 4)
+    torch.cuda.synchronize()
+    assert cuda_kernels.reconstruct_picture.launches == 4 * 8 * 2
+    for s in range(4):
+        _assert_frames(frames[s], _host_frames(cuts[s], fs), fs,
+                       f"sharded dense stream {s}")
