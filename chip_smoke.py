@@ -76,7 +76,17 @@ of the port and checks its output:
 - `multihost`: `parallel.multihost.launch` as one NCCL process and as two
   gloo processes on the card, each on the golden;
 - `examples`: the seven `examples_torch/` scripts on the card, at once,
-  each in its own process.
+  each in its own process;
+- `bench`: the port's bench leg (`mpeg_tpu_torch.bench`) in this
+  process with a 5 s sustained segment (the long-form leg only where
+  cv2 is importable): its first headline pass (4 looping streams of the
+  1080p fixture x window 16 x 6 rounds, K5 three launches and K1 at
+  most 16 a round) every display against the C++ host decoder over the
+  looping fixture and every copy pinned, then the timed passes, the
+  stage budget, the reconstruct microbenches and every secondary leg
+  (any that raised fails the run), the headline's passes again with
+  `min(4, os.cpu_count())` parse threads, and the mesh mode on the card
+  listed twice; its JSON line goes out in the `bench` line.
 
 `--baseline` (which may be repeated) also builds K1 and K3 from another
 copy of `recon.cu` (an earlier commit's, or an edited copy with another
@@ -1337,6 +1347,26 @@ def _native_frames(data: bytes) -> list:
     frames = []
     while (f := ref.decode_next()) is not None:
         frames.append(f)
+    return frames
+
+
+def _looping_native_frames(data: bytes, loops: int) -> list:
+    """The displayed frames of `data` looped `loops` times, as the bench's
+    streams loop it: the C++ host decoder reset and fed `data` again at
+    each loop's end.  The looping decode carries its frames across the
+    loop, which equals a reset where no picture of a loop predicts from
+    the loop before (the 1080p fixture: I and P pictures only).  (A host
+    decode of the bytes repeated, where the next loop's bytes follow each
+    loop's last picture, gives another last picture of the 1080p
+    fixture.)"""
+    from mpeg_tpu_torch.native import NativeHostDecoder
+
+    ref, frames = NativeHostDecoder(data), []
+    for k in range(loops):
+        if k:
+            ref.reset(data)
+        while (f := ref.decode_next()) is not None:
+            frames.append(f)
     return frames
 
 
@@ -3231,6 +3261,94 @@ def phase_examples() -> dict:
     return out
 
 
+BENCH_SUSTAIN_S = 5.0   # the bench phase's sustained segment
+
+
+def phase_bench() -> dict:
+    """The port's bench (`mpeg_tpu_torch.bench`) in this process at
+    reduced settings (a 5 s sustained segment; the long-form leg only
+    where cv2 is importable, which builds its fixture), on the committed
+    1080p fixture that every phase decodes (the recipe's output with
+    cv2 5.0.0; another cv2 writes other bytes).  Its first headline
+    pass, from fresh streams and a fresh carry, keeps its displays:
+    every one (but each stream's first, the first reference picture,
+    which the reference delay holds back) must equal the C++ host
+    decoder's frame over the looping fixture (reset at each loop's end,
+    as the bench's streams are), every copy must come from pinned
+    memory, and K5 must launch three times a round and K1 at most once
+    a step; the launch counts are set to 0 just before that pass and
+    read just after.  Then
+    the bench's timed passes, sustained segment, stage budget,
+    microbenches and secondary legs (a leg that raised fails the run),
+    the headline's passes with `min(4, os.cpu_count())` parse threads,
+    and the mesh mode on the card listed twice."""
+    import torch
+
+    from mpeg_tpu_torch import bench
+    from mpeg_tpu_torch.ops import cuda_kernels
+
+    t0 = time.perf_counter()
+    settings = bench.Settings(sustain=BENCH_SUSTAIN_S)
+    b = bench.Bench("cuda", settings, bench.COMMITTED_FIXTURE)
+    b.prepare()
+    counts = _transport_counts()
+    cuda_kernels.reset_launches()
+    kept = b.first_pass(keep=True)
+    torch.cuda.synchronize()
+    launches = {"reconstruct_picture":
+                cuda_kernels.reconstruct_picture.launches,
+                "densify_unpack": cuda_kernels.densify_unpack.launches}
+    transport = check_transport(counts, "bench headline")
+    rounds, window = len(kept), settings.window
+    if not 0 < launches["reconstruct_picture"] <= window * rounds:
+        fail(f"bench headline: K1 launched "
+             f"{launches['reconstruct_picture']} times in {rounds} rounds "
+             f"of {window} steps")
+    if launches["densify_unpack"] != cuda_kernels.DENSIFY_LAUNCHES * rounds:
+        fail(f"bench headline: K5 launched {launches['densify_unpack']} "
+             f"times in {rounds} rounds")
+    steps = window * rounds
+    want = _looping_native_frames(b.data, -(-steps // b.pics))
+    fs = b.geom.frame_size
+    if len(want) < steps - 1:
+        fail(f"bench headline: the host decoder gave {len(want)} frames "
+             f"for {steps} steps")
+    for s in range(bench.STREAMS):
+        got = [d[s, t] for d in kept for t in range(window)][1:]
+        _check_against_host(got, want[:len(got)], fs,
+                            f"bench headline, stream {s}")
+    check = {"rounds": rounds, "streams": bench.STREAMS, "window": window,
+             "displays_checked": bench.STREAMS * (steps - 1),
+             "loops_of_the_fixture": steps / b.pics,
+             "equal_to_native_host_decoder": True, "launches": launches,
+             "transport": transport}
+    del kept
+
+    line = b.headline()
+    legs = b.secondaries()
+    b.ring.close()
+    if b.failed:
+        fail(f"bench: legs failed: {b.failed}: "
+             f"{ {k: legs[k] for k in b.failed} }")
+    threads = min(4, os.cpu_count())
+    bn = bench.Bench("cuda", bench.Settings(parse_threads=threads,
+                                            sustain=0, stream64=False,
+                                            longform=False),
+                     bench.COMMITTED_FIXTURE)
+    bn.prepare()
+    bn.first_pass()
+    fps_n, e2e_n, busy_n = bn.passes()
+    bn.ring.close()
+    mesh = bench.mesh_bench(2, "cuda", bench.Settings(),
+                            bench.COMMITTED_FIXTURE)
+    out = {"phase": "bench", **line, "legs": legs, "headline_check": check,
+           "parse_threads_n": {"parse_threads": threads, "value": fps_n,
+                               "passes_fps": e2e_n, "busy": busy_n},
+           "mesh": mesh, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def _rates(tree: str) -> dict:
     """The smoke run's end-to-end rates of the package in `tree` (this
     process imports it from there), each over fresh decoders, the median
@@ -3409,6 +3527,7 @@ def main() -> int:
 
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
 
+    t_start = time.perf_counter()
     phase_probe()
     phase_build()
     parity = phase_kernel_parity(args.seed)
@@ -3433,6 +3552,8 @@ def main() -> int:
         phase_turns(args.parent_tree)
     phase_multihost()
     phase_examples()
+    with no_plain_densify():
+        bench = phase_bench()
     # The four decodes' idle share, or that the profiler recorded nothing.
     emit({"idle_share": {
         name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
@@ -3492,7 +3613,9 @@ def main() -> int:
             fixture_plain_ms=fixture["k1_plain_ms"],
             fixture_bound_ms=fixture["bound_ms"],
             interactive_launches=interactive["k1_launches"],
-            sharded_launches=sharded["meshes"]["card"]["k1_launches"]),
+            sharded_launches=sharded["meshes"]["card"]["k1_launches"],
+            bench_launches=bench["headline_check"]["launches"]
+            ["reconstruct_picture"]),
         row("idct_batch", multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
             parity["k2_plain_ms"], parity["k2_bound_ms"],
@@ -3577,11 +3700,14 @@ def main() -> int:
             single_launches=e2e["launches"]["densify_unpack"],
             interactive_launches=interactive["k5_launches"],
             sharded_launches=sharded["meshes"]["card"]["k5_launches"],
+            bench_launches=bench["headline_check"]["launches"]
+            ["densify_unpack"],
             shapes=k5["shapes"],
             library_note="none: index_add_ is only the scatter, the last "
             "step; no PyTorch call does the prefix sum, the premultiply, "
             "the scatter and the unpack"),
     ]})
+    emit({"chip_smoke_wall_s": time.perf_counter() - t_start})
     smi = gpu_name_and_power_limit()
     if not smi:
         fail("nvidia-smi gave no name and power limit")

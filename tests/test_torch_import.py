@@ -28,6 +28,7 @@ sys.meta_path.insert(0, _Block())
 import mpeg_tpu_torch
 import mpeg_tpu_torch._spec_tables
 import mpeg_tpu_torch.audio
+import mpeg_tpu_torch.bench
 import mpeg_tpu_torch.buffer
 import mpeg_tpu_torch.config
 import mpeg_tpu_torch.demux
