@@ -27,6 +27,7 @@ from . import tables as T
 from .buffer import Buffer
 from .device import resolve_device
 from .ops import cuda_kernels
+from .utils import profiling
 from .video import _check_backend
 
 SAMPLES_PER_FRAME = T.SAMPLES_PER_FRAME
@@ -95,6 +96,7 @@ class Audio:
         default; raises without a card) or "cpu"."""
         from .config import DEFAULT
         cfg = config if config is not None else DEFAULT
+        self._key = profiling.new_key()
         self.backend = _check_backend(backend, cfg, ("torch",))
         self.device = resolve_device(device)
         parser = parser if parser is not None else cfg.parser
@@ -175,21 +177,22 @@ class Audio:
     def _native_next_frame(self):
         """Pull the next subband-sample tensor, refilling via the load
         callback exactly like the reference's pull model."""
-        while True:
-            self._native_feed()
-            out = self._native.parse_next_frame()
-            if out is not None:
-                self._native_sync_header()
-                return out
-            before = len(self.buf.data)
-            if self.buf.load_callback is not None:
-                self.buf.load_callback(self.buf)
-            if len(self.buf.data) == before:
-                if self._native_ended():
-                    self._native.signal_end()
-                    self._native_feed()
-                    return self._native.parse_next_frame()
-                return None
+        with profiling.span("mpeg.audio.frame", self._key):
+            while True:
+                self._native_feed()
+                out = self._native.parse_next_frame()
+                if out is not None:
+                    self._native_sync_header()
+                    return out
+                before = len(self.buf.data)
+                if self.buf.load_callback is not None:
+                    self.buf.load_callback(self.buf)
+                if len(self.buf.data) == before:
+                    if self._native_ended():
+                        self._native.signal_end()
+                        self._native_feed()
+                        return self._native.parse_next_frame()
+                    return None
 
     # -- public surface (parity: audio.go:106-182) ---------------------------
 
@@ -289,17 +292,20 @@ class Audio:
         # copy of the normalized PCM, which waits for both: the buffer is
         # free again when this returns, so it needs no ring or gate.
         from .parallel.batch import device_put, host_blob
-        if self._staging is None:
-            self._staging = host_blob(36 * 2 * 32 * 4, self.device) \
-                .view(torch.int32).view(36, 2, 32)
-            self._staging_np = self._staging.numpy()
-        self._staging_np[...] = samples_int
-        (x,), _ = device_put([self._staging], self.device,
-                             current_stream=True)
-        pcm, ring, self.v_pos = cuda_kernels.synthesize_ring(
-            x[None], self._v[None], self.v_pos, out="f32")
-        self._v = ring[0]
-        self.samples.interleaved = pcm[0].cpu().numpy()
+        with profiling.span("mpeg.audio.synth", self._key):
+            if self._staging is None:
+                self._staging = host_blob(36 * 2 * 32 * 4, self.device) \
+                    .view(torch.int32).view(36, 2, 32)
+                self._staging_np = self._staging.numpy()
+            self._staging_np[...] = samples_int
+            (x,), _ = device_put([self._staging], self.device,
+                                 current_stream=True)
+            pcm, ring, self.v_pos = cuda_kernels.synthesize_ring(
+                x[None], self._v[None], self.v_pos, out="f32")
+            self._v = ring[0]
+            profiling.count("blocks")
+            with profiling.span("mpeg.block", self._key):
+                self.samples.interleaved = pcm[0].cpu().numpy()
 
     # -- host parse (parity: audio.go:184-490) -------------------------------
 

@@ -1254,8 +1254,8 @@ class Bench:
         `BatchAudioDecoder(window=352)` (one K4 launch a window on the
         card), in four lanes: PCM on the device (s16, f32) and on the
         host (f32, s16).  Each lane: a warm pass, the rate from a
-        prefetching pass, and a pass with `DecodeStats(detailed=True)`
-        splitting the work into parse, h2d, dispatch and d2h."""
+        prefetching pass, and the parse time of an inline pass
+        (`DecodeStats`)."""
         from .parallel import BatchAudioDecoder
         from .utils.profiling import DecodeStats
 
@@ -1282,13 +1282,10 @@ class Bench:
                                       ("host_s16", "s16", False)):
             one_pass(fmt, out_device)
             rate = one_pass(fmt, out_device)
-            st = DecodeStats(detailed=True)
+            st = DecodeStats()
             one_pass(fmt, out_device, stats=st)
             res["lanes"][name] = {"msamples_per_s": rate,
-                                  "parse_s": st.host_seconds,
-                                  "h2d_s": st.h2d_seconds,
-                                  "dispatch_s": st.dispatch_seconds,
-                                  "d2h_s": st.d2h_seconds}
+                                  "parse_s": st.host_seconds}
         log(f"MP2 audio: {json.dumps(res)}")
         return res
 

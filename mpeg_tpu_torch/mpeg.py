@@ -26,6 +26,7 @@ from .demux import (
     Demux, InvalidHeaderError, PACKET_AUDIO_1, PACKET_VIDEO_1,
 )
 from .device import resolve_device
+from .utils import profiling
 from .video import Frame, Video, _check_backend
 
 
@@ -55,83 +56,87 @@ class MPEG:
 
     def __init__(self, reader, backend: str = None, config=None, *,
                  device="cuda"):
-        if isinstance(reader, (bytes, bytearray)):
-            reader = io.BytesIO(reader)
+        self._key = profiling.new_key()
+        with profiling.span("mpeg.open", self._key):
+            if isinstance(reader, (bytes, bytearray)):
+                with profiling.span("mpeg.open.copy", self._key):
+                    reader = io.BytesIO(reader)
 
-        from .config import DEFAULT
-        self.config = config if config is not None else DEFAULT
-        self.backend = _check_backend(backend, self.config, ("torch",))
-        self.device = resolve_device(device)
-        buf = Buffer(reader, chunk_size=self.config.buffer_size)
-        self._seekable = buf.seekable()
+            from .config import DEFAULT
+            self.config = config if config is not None else DEFAULT
+            self.backend = _check_backend(backend, self.config, ("torch",))
+            self.device = resolve_device(device)
+            buf = Buffer(reader, chunk_size=self.config.buffer_size)
+            self._seekable = buf.seekable()
 
-        # Engine selection BEFORE the first read: both source classes
-        # run the fully-native pipeline (demux + ES parsers in one C++
-        # object, zero per-packet Python).  Seekable sources use an
-        # independent sequential feeder; non-seekable sources (pipes,
-        # push-style readers) are single-pass, so one TeeFeeder reads
-        # each chunk exactly once and fans it out to the pipeline and
-        # the control-plane window — with seek/rewind degraded exactly
-        # as the reference degrades non-seekable sources
-        # (buffer.go:74-76; mpeg.go:137,515).
-        self._pipeline = None
-        self._feeder = None
-        parser = self.config.parser
-        if parser == "auto":
-            from . import native as native_mod
-            parser = "native" if native_mod.available() else "python"
-        if parser == "native":
-            from . import native as native_mod
-            if native_mod.available():
-                self._pipeline = native_mod.NativePipeline()
-                if self._seekable:
-                    from .pipeline import ReaderFeeder
-                    buf.set_load_callback(buf.load_reader_callback)
-                    self._feeder = ReaderFeeder(reader,
-                                                self.config.buffer_size)
-                else:
-                    from .pipeline import TeeFeeder
-                    buf = Buffer(None)
-                    buf.discard_read = False
-                    self._feeder = TeeFeeder(reader, buf, self._pipeline,
-                                             self.config.buffer_size)
-                    buf.set_load_callback(self._feeder.control_refill)
-        if self._pipeline is None:
-            buf.set_load_callback(buf.load_reader_callback)
+            # Engine selection BEFORE the first read: both source classes
+            # run the fully-native pipeline (demux + ES parsers in one C++
+            # object, zero per-packet Python).  Seekable sources use an
+            # independent sequential feeder; non-seekable sources (pipes,
+            # push-style readers) are single-pass, so one TeeFeeder reads
+            # each chunk exactly once and fans it out to the pipeline and
+            # the control-plane window — with seek/rewind degraded exactly
+            # as the reference degrades non-seekable sources
+            # (buffer.go:74-76; mpeg.go:137,515).
+            self._pipeline = None
+            self._feeder = None
+            parser = self.config.parser
+            if parser == "auto":
+                from . import native as native_mod
+                parser = "native" if native_mod.available() else "python"
+            if parser == "native":
+                from . import native as native_mod
+                if native_mod.available():
+                    with profiling.span("mpeg.open.parser", self._key):
+                        self._pipeline = native_mod.NativePipeline()
+                    if self._seekable:
+                        from .pipeline import ReaderFeeder
+                        buf.set_load_callback(buf.load_reader_callback)
+                        self._feeder = ReaderFeeder(reader,
+                                                    self.config.buffer_size)
+                    else:
+                        from .pipeline import TeeFeeder
+                        buf = Buffer(None)
+                        buf.discard_read = False
+                        self._feeder = TeeFeeder(reader, buf, self._pipeline,
+                                                 self.config.buffer_size)
+                        buf.set_load_callback(self._feeder.control_refill)
+            if self._pipeline is None:
+                buf.set_load_callback(buf.load_reader_callback)
 
-        if not buf.has(32):
-            raise InvalidMpegError("invalid MPEG-PS")
-        if bytes(buf.bytes()[0:4]) != b"\x00\x00\x01\xBA":
-            raise InvalidMpegError("invalid MPEG-PS")
-        buf.rewind()
+            if not buf.has(32):
+                raise InvalidMpegError("invalid MPEG-PS")
+            if bytes(buf.bytes()[0:4]) != b"\x00\x00\x01\xBA":
+                raise InvalidMpegError("invalid MPEG-PS")
+            buf.rewind()
 
-        try:
-            self.demux = Demux(buf)
-        except InvalidHeaderError as e:
-            raise InvalidMpegError(str(e)) from e
+            try:
+                self.demux = Demux(buf)
+            except InvalidHeaderError as e:
+                raise InvalidMpegError(str(e)) from e
 
-        self.time = 0.0
-        self.loop = False
-        self._has_ended = False
-        self.done = False
-        self.has_decoders = False
+            self.time = 0.0
+            self.loop = False
+            self._has_ended = False
+            self.done = False
+            self.has_decoders = False
 
-        self.video_enabled = True
-        self.video_packet_type = 0
-        self.video_buffer: Optional[Buffer] = None
-        self.video_decoder: Optional[Video] = None
+            self.video_enabled = True
+            self.video_packet_type = 0
+            self.video_buffer: Optional[Buffer] = None
+            self.video_decoder: Optional[Video] = None
 
-        self.audio_enabled = True
-        self.audio_packet_type = 0
-        self.audio_stream_index = 0
-        self.audio_lead_time = self.config.audio_lead_time
-        self.audio_buffer: Optional[Buffer] = None
-        self.audio_decoder: Optional[Audio] = None
+            self.audio_enabled = True
+            self.audio_packet_type = 0
+            self.audio_stream_index = 0
+            self.audio_lead_time = self.config.audio_lead_time
+            self.audio_buffer: Optional[Buffer] = None
+            self.audio_decoder: Optional[Audio] = None
 
-        self.video_callback: Optional[VideoCallback] = None
-        self.audio_callback: Optional[AudioCallback] = None
+            self.video_callback: Optional[VideoCallback] = None
+            self.audio_callback: Optional[AudioCallback] = None
 
-        self._init_decoders()
+            self._init_decoders()
 
     # -- headers / probing ---------------------------------------------------
 
@@ -302,52 +307,53 @@ class MPEG:
     def decode(self, tick: float) -> None:
         """Advance the internal timer by `tick` seconds and decode
         everything up to that time, firing callbacks (mpeg.go:356-411)."""
-        if not self._init_decoders():
-            return
+        with profiling.span("mpeg.decode", self._key):
+            if not self._init_decoders():
+                return
 
-        decode_video = self.video_callback is not None and \
-            self.video_packet_type != 0
-        decode_audio = self.audio_callback is not None and \
-            self.audio_packet_type != 0
-        if not decode_video and not decode_audio:
-            return
+            decode_video = self.video_callback is not None and \
+                self.video_packet_type != 0
+            decode_audio = self.audio_callback is not None and \
+                self.audio_packet_type != 0
+            if not decode_video and not decode_audio:
+                return
 
-        decode_video_failed = False
-        decode_audio_failed = False
-        video_target = self.time + tick
-        audio_target = self.time + tick + self.audio_lead_time
+            decode_video_failed = False
+            decode_audio_failed = False
+            video_target = self.time + tick
+            audio_target = self.time + tick + self.audio_lead_time
 
-        while True:
-            did_decode = False
+            while True:
+                did_decode = False
 
-            if decode_video and \
-                    self.video_decoder.get_time() < video_target:
-                frame = self.video_decoder.decode()
-                if frame is not None:
-                    self.video_callback(self, frame)
-                    did_decode = True
-                else:
-                    decode_video_failed = True
+                if decode_video and \
+                        self.video_decoder.get_time() < video_target:
+                    frame = self.video_decoder.decode()
+                    if frame is not None:
+                        self.video_callback(self, frame)
+                        did_decode = True
+                    else:
+                        decode_video_failed = True
 
-            if decode_audio and \
-                    self.audio_decoder.get_time() < audio_target:
-                samples = self.audio_decoder.decode()
-                if samples is not None:
-                    self.audio_callback(self, samples)
-                    did_decode = True
-                else:
-                    decode_audio_failed = True
+                if decode_audio and \
+                        self.audio_decoder.get_time() < audio_target:
+                    samples = self.audio_decoder.decode()
+                    if samples is not None:
+                        self.audio_callback(self, samples)
+                        did_decode = True
+                    else:
+                        decode_audio_failed = True
 
-            if not did_decode:
-                break
+                if not did_decode:
+                    break
 
-        if (not decode_video or decode_video_failed) and \
-                (not decode_audio or decode_audio_failed) and \
-                self._source_has_ended():
-            self._handle_end()
-            return
+            if (not decode_video or decode_video_failed) and \
+                    (not decode_audio or decode_audio_failed) and \
+                    self._source_has_ended():
+                self._handle_end()
+                return
 
-        self.time += tick
+            self.time += tick
 
     def decode_video(self) -> Optional[Frame]:
         """Decode and return one video frame (mpeg.go:416-433)."""
@@ -540,6 +546,10 @@ class MPEG:
                 if self.config.audio_format:
                     self.set_audio_format(self.config.audio_format)
 
+        # The clip's spans share one key, the decoders' and this MPEG's.
+        for dec in (self.video_decoder, self.audio_decoder):
+            if dec is not None:
+                dec._key = self._key
         self.has_decoders = True
         return True
 

@@ -23,14 +23,10 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_kernels
+from ..utils import profiling
 from .batch import HostRing
 
 _FRAME_BYTES = 36 * 2 * 32 * 4   # a frame's int32 subband samples
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class BatchAudioDecoder:
@@ -309,9 +305,6 @@ class BatchAudioDecoder:
                                      device=self.device)
             self._ring = HostRing(self.device)
 
-        # stats.detailed: split the device leg into h2d / synthesis / d2h
-        # with explicit syncs (attribution mode).
-        detailed = self.stats is not None and self.stats.detailed
         t0 = time.perf_counter()
         # Packed straight into a host buffer of the ring (pinned for the
         # card, written again only once its last copy has completed), the
@@ -323,23 +316,15 @@ class BatchAudioDecoder:
         samples[n:] = 0
         xs, = self._ring.send([host])
         xs = xs.view(torch.int32).view(1, -1, 2, 32)
-        if detailed:
-            _sync(self.device)
-            t1 = time.perf_counter()
-            self.stats.h2d_seconds += t1 - t0
         # Normalized (or quantized: the d2h is then int16) and interleaved
         # on the device; the window's first n frames.
         out, self._hist = cuda_kernels.synthesize(xs, self._hist,
                                                   out=self.out_format)
         pcm = out[0, :n * 2304]
-        if detailed:
-            _sync(self.device)
-            t2 = time.perf_counter()
-            self.stats.dispatch_seconds += t2 - t1
         if not self.out_device:
-            pcm = pcm.cpu().numpy()
-        if detailed:
-            self.stats.d2h_seconds += time.perf_counter() - t2
+            profiling.count("blocks")
+            with profiling.span("mpeg.block"):
+                pcm = pcm.cpu().numpy()
         if self.stats is not None:
             self.stats.samples += n * 1152
             self.stats.transfer_bytes += samples.nbytes

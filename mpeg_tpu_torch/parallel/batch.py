@@ -55,6 +55,7 @@ from ..tables import (
     PICTURE_TYPE_B, PICTURE_TYPE_INTRA, PICTURE_TYPE_PREDICTIVE,
     PREMULTIPLIER_MATRIX,
 )
+from ..utils import profiling
 from ..video import Video
 
 _PREMULT = np.asarray(PREMULTIPLIER_MATRIX, np.int32)
@@ -763,8 +764,11 @@ def host_blob(nbytes: int, device) -> torch.Tensor:
     allocation costs far more than a pageable one); the native parser
     writes into its `.numpy()` view (`blob_views`).  A pinned allocation
     that fails raises."""
-    return torch.empty(nbytes, dtype=torch.uint8,
-                       pin_memory=torch.device(device).type == "cuda")
+    profiling.count("host_blob_allocs")
+    profiling.count("host_blob_bytes", nbytes)
+    with profiling.span("mpeg.alloc.pinned"):
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=torch.device(device).type == "cuda")
 
 
 # One copy stream a CUDA device, for the process (device index -> stream):
@@ -915,7 +919,9 @@ class HostRing:
             n += 1
         else:
             i = self._next
-            self._bufs[i][1].synchronize()
+            profiling.count("blocks")
+            with profiling.span("mpeg.block"):
+                self._bufs[i][1].synchronize()
         self._next = (i + 1) % n
         entry = self._bufs[i]
         entry[1] = None
@@ -1030,6 +1036,7 @@ class BatchVideoDecoder:
         streaming=True (feed() drives the parse there).
         Unset arguments fall back to `config` (default config.DEFAULT).
         """
+        self._key = profiling.new_key()
         from ..config import DEFAULT
         self.device = resolve_device(device)
         cfg = config if config is not None else DEFAULT
@@ -1049,35 +1056,37 @@ class BatchVideoDecoder:
         self._ended = not streaming
         self._use_native = use_native
         self._prefix = b""   # bytes held back until the container is known
-        if use_native:
-            if transport != "blob":
-                raise ValueError("transport='dense' needs the Python plan "
-                                 "parse (use_native=False): the native "
-                                 "parse emits blob records")
-            data = buf if isinstance(buf, (bytes, bytearray)) else \
-                bytes(buf.bytes())
-            if data or not streaming:
-                self._make_native(bytes(data))
-        else:
-            if isinstance(buf, (bytes, bytearray)):
-                import io
-                from ..buffer import Buffer
-                if bytes(buf[:4]) == b"\x00\x00\x01\xBA":
-                    raise ValueError(
-                        "MPEG-PS input needs the native pipeline "
-                        "(use_native=True); the Python plan parser "
-                        "consumes elementary streams only")
-                if streaming:
-                    # Push-fed buffer: a reader-backed one would report
-                    # has_ended as soon as the initial bytes drained.
-                    b = Buffer(None)
-                    if buf:
-                        b.write(bytes(buf))
-                else:
-                    b = Buffer(io.BytesIO(bytes(buf)))
-                    b.set_load_callback(b.load_reader_callback)
-                buf = b
-            self.video = Video(buf, backend="plan")
+        with profiling.span("mpeg.open", self._key):
+            if use_native:
+                if transport != "blob":
+                    raise ValueError("transport='dense' needs the Python plan "
+                                     "parse (use_native=False): the native "
+                                     "parse emits blob records")
+                with profiling.span("mpeg.open.copy", self._key):
+                    data = bytes(buf if isinstance(buf, (bytes, bytearray))
+                                 else buf.bytes())
+                if data or not streaming:
+                    self._make_native(data)
+            else:
+                if isinstance(buf, (bytes, bytearray)):
+                    import io
+                    from ..buffer import Buffer
+                    if bytes(buf[:4]) == b"\x00\x00\x01\xBA":
+                        raise ValueError(
+                            "MPEG-PS input needs the native pipeline "
+                            "(use_native=True); the Python plan parser "
+                            "consumes elementary streams only")
+                    if streaming:
+                        # Push-fed buffer: a reader-backed one would report
+                        # has_ended as soon as the initial bytes drained.
+                        b = Buffer(None)
+                        if buf:
+                            b.write(bytes(buf))
+                    else:
+                        b = Buffer(io.BytesIO(bytes(buf)))
+                        b.set_load_callback(b.load_reader_callback)
+                    buf = b
+                self.video = Video(buf, backend="plan")
         self.window = window
         self.transport = transport
         self.stats = stats
@@ -1241,15 +1250,16 @@ class BatchVideoDecoder:
             if len(self._prefix) < 4:
                 return
             data, self._prefix = self._prefix, b""
-        if data[:4] == b"\x00\x00\x01\xBA":
-            # MPEG-PS container: the fully-native pipeline (demux +
-            # ES parse in C++) exposes the same blob contract.
-            self.native = self._native_mod.NativePipeline()
-        else:
-            self.native = self._native_mod.NativeVideoParser()
-        self.native.feed(data)
-        if not self._streaming:
-            self.native.signal_end()
+        with profiling.span("mpeg.open.parser", self._key):
+            if data[:4] == b"\x00\x00\x01\xBA":
+                # MPEG-PS container: the fully-native pipeline (demux +
+                # ES parse in C++) exposes the same blob contract.
+                self.native = self._native_mod.NativePipeline()
+            else:
+                self.native = self._native_mod.NativeVideoParser()
+            self.native.feed(data)
+            if not self._streaming:
+                self.native.signal_end()
 
     def feed(self, data: bytes) -> None:
         """Streaming mode: push more source bytes (ES or PS)."""
@@ -1302,21 +1312,27 @@ class BatchVideoDecoder:
     def _ensure_device_state(self, caps=None):
         if caps is None and self.transport == "blob":
             caps = (self._km, self._ke)
-        if self._scan is None or self._scan_caps != caps:
-            if self.transport == "blob":
-                self._scan = WindowDecoder(self.geom, self.window, *caps,
-                                           emit_rgba=self.emit_rgba,
-                                           recon=self._recon)
-            else:
-                self._scan = DenseWindowDecoder(self.geom, self.emit_rgba,
-                                                recon=self._recon)
-            self._scan = self._scan.to(self.device)
-            self._scan_caps = caps
-        if self._carry is None:
-            # Three distinct buffers, as the reference's carry.
-            self._carry = tuple(
-                torch.zeros(self.geom.total_size, dtype=torch.uint8,
-                            device=self.device) for _ in range(3))
+        if self._scan is not None and self._scan_caps == caps and \
+                self._carry is not None:
+            return
+        profiling.count("state_builds")
+        with profiling.span("mpeg.state", self._key):
+            if self._scan is None or self._scan_caps != caps:
+                if self.transport == "blob":
+                    self._scan = WindowDecoder(self.geom, self.window, *caps,
+                                               emit_rgba=self.emit_rgba,
+                                               recon=self._recon)
+                else:
+                    self._scan = DenseWindowDecoder(self.geom,
+                                                    self.emit_rgba,
+                                                    recon=self._recon)
+                self._scan = self._scan.to(self.device)
+                self._scan_caps = caps
+            if self._carry is None:
+                # Three distinct buffers, as the reference's carry.
+                self._carry = tuple(
+                    torch.zeros(self.geom.total_size, dtype=torch.uint8,
+                                device=self.device) for _ in range(3))
 
     def load_carry(self, frames, types=()) -> None:
         """Continue a stream whose earlier pictures another decoder (the
@@ -1353,6 +1369,7 @@ class BatchVideoDecoder:
 
         self._ensure_device_state(caps)
         t0 = time.perf_counter()
+        enqueue = profiling.span("mpeg.enqueue", self._key)
         if self.transport == "blob":
             # One transfer: the fixed meta+escape prefix and a power-of-two
             # bucket of the filled main records (the tail is zero records).
@@ -1360,11 +1377,16 @@ class BatchVideoDecoder:
             nm = caps[0] if fill is None else fill[0]
             kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
             nbytes = split + 4 * kt
-            flags = blob_views(blob, self.geom, self.window, *caps)["flags"] \
-                .copy()
-            (dev_blob,), gate = device_put([blob[:nbytes]], self.device)
-            self._carry, disps = self._scan(self._carry, dev_blob[:split],
-                                            dev_blob[split:], flags)
+            with enqueue:
+                flags = blob_views(blob, self.geom, self.window,
+                                   *caps)["flags"].copy()
+                with profiling.span("mpeg.h2d", self._key):
+                    (dev_blob,), gate = device_put([blob[:nbytes]],
+                                                   self.device)
+                with profiling.span("mpeg.launch", self._key):
+                    self._carry, disps = self._scan(
+                        self._carry, dev_blob[:split], dev_blob[split:],
+                        flags)
             # The blob is recycled once its COPY's gate has completed: a
             # completed event after the asynchronous copy proves that the
             # card has read the host bytes.  (The reference gates on the
@@ -1379,10 +1401,13 @@ class BatchVideoDecoder:
             # (no staging copy), written again only once its gate has
             # completed.
             nbytes = stack_layout(self.geom, self.window)[1]
-            host = self._scan.ring(self.device).take(nbytes)
-            stacked = stack_plans(plans, self.geom, self.window,
-                                  out=host.numpy())
-            self._carry, disps = self._scan(self._carry, stacked, host=host)
+            with enqueue:
+                host = self._scan.ring(self.device).take(nbytes)
+                stacked = stack_plans(plans, self.geom, self.window,
+                                      out=host.numpy())
+                with profiling.span("mpeg.launch", self._key):
+                    self._carry, disps = self._scan(self._carry, stacked,
+                                                    host=host)
         t_disp = time.perf_counter() - t0
 
         if self.stats is not None:
@@ -1483,6 +1508,7 @@ class BatchVideoDecoder:
                 break
             # Grow the sticky buckets to fit the pending picture, carry
             # the partially-filled window into the new layout.
+            profiling.count("pool_growths")
             cm, ce = self.native.blob_counts()
             old_km, old_ke = self._km, self._ke
             self._km = pool_bucket(nm + cm + hop_slack, self._km)
@@ -1514,10 +1540,11 @@ class BatchVideoDecoder:
         whose displays are all absorbed by the reference delay or the
         open-GOP B-drop advance to the next window internally so callers
         can keep treating [] as 'no more output now'."""
-        while True:
-            out, parsed = self._decode_window_once()
-            if out or not parsed:
-                return out
+        with profiling.span("mpeg.window", self._key):
+            while True:
+                out, parsed = self._decode_window_once()
+                if out or not parsed:
+                    return out
 
     def _parse_stage(self):
         """Parse + pack one window (runs on the prefetch thread when
@@ -1530,24 +1557,29 @@ class BatchVideoDecoder:
         nothing (blob and caps None)."""
         t0 = time.perf_counter()
         fill = None
-        if self.native is not None:
-            blob, types, fill = self._native_window_blob()
-            plans = None
-        else:
-            plans = self.parse_window()
-            types = [t for _, t in plans]
-            blob = None
-            if plans and self.transport == "blob":
-                records = [plan_pool_records(p) for p, _ in plans]
-                (mi, _), (ei, _) = _window_records(
-                    plans, self.geom.mb_size, records)
-                nm = delta_encode(mi)[0].size
-                ne = delta_encode(ei)[0].size
-                self._km = max(self._km, pool_bucket(nm, _MIN_KM))
-                self._ke = max(self._ke, pool_bucket(ne, _MIN_KE))
-                blob = self._alloc_window_blob()[0]
-                pack_plans_blob(plans, self.geom, self.window, self._km,
-                                self._ke, records=records, out=blob.numpy())
+        with profiling.span("mpeg.parse", self._key):
+            if self.native is not None:
+                blob, types, fill = self._native_window_blob()
+                plans = None
+            else:
+                plans = self.parse_window()
+                types = [t for _, t in plans]
+                blob = None
+                if plans and self.transport == "blob":
+                    records = [plan_pool_records(p) for p, _ in plans]
+                    (mi, _), (ei, _) = _window_records(
+                        plans, self.geom.mb_size, records)
+                    nm = delta_encode(mi)[0].size
+                    ne = delta_encode(ei)[0].size
+                    caps = (self._km, self._ke)
+                    self._km = max(self._km, pool_bucket(nm, _MIN_KM))
+                    self._ke = max(self._ke, pool_bucket(ne, _MIN_KE))
+                    if (self._km, self._ke) != caps:
+                        profiling.count("pool_growths")
+                    blob = self._alloc_window_blob()[0]
+                    pack_plans_blob(plans, self.geom, self.window, self._km,
+                                    self._ke, records=records,
+                                    out=blob.numpy())
         caps = (self._km, self._ke) if self.transport == "blob" else None
         return blob, plans, types, caps, time.perf_counter() - t0, fill
 
@@ -1555,7 +1587,8 @@ class BatchVideoDecoder:
         """The next parsed window — from the prefetch queue (started
         lazily; depth 2) or parsed inline."""
         if not self._prefetch:
-            return self._parse_stage()
+            with profiling.span("mpeg.parse.wait", self._key):
+                return self._parse_stage()
         import queue
         import threading
         import weakref
@@ -1605,7 +1638,8 @@ class BatchVideoDecoder:
             self._pf_thread = threading.Thread(target=producer,
                                                daemon=True)
             self._pf_thread.start()
-        item = self._pf_queue.get()
+        with profiling.span("mpeg.parse.wait", self._key):
+            item = self._pf_queue.get()
         if isinstance(item, BaseException):
             # The producer is gone and may have parsed ahead of the
             # failed window: the windows it held are lost, so poison

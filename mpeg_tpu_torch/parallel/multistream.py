@@ -40,6 +40,7 @@ from ..ops import cuda_kernels
 from ..ops.color import flat_frame_to_rgba
 from ..ops.video_recon import FrameGeometry
 from ..tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
+from ..utils import profiling
 from .batch import (
     _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, HostRing, blob_split,
     densify_unpack, device_put, host_blob, pool_bucket, split_views,
@@ -192,11 +193,14 @@ class _Slot:
     def wait(self, closed) -> None:
         """Block until the consumer has handed the slot back and its
         copies have read the buffers (the gate); `closed()` true raises."""
-        while not self.evt.wait(timeout=0.5):
-            if closed():
-                raise RuntimeError("decoder closed")
+        with profiling.span("mpeg.slot.wait"):
+            while not self.evt.wait(timeout=0.5):
+                if closed():
+                    raise RuntimeError("decoder closed")
         if self.gate is not None:
-            self.gate.synchronize()
+            profiling.count("blocks")
+            with profiling.span("mpeg.block"):
+                self.gate.synchronize()
             self.gate = None
 
 
@@ -231,6 +235,7 @@ class MultiStreamVideoDecoder:
                  prefetch: bool = False, *, device="cuda", stats=None):
         from .. import native as native_mod
 
+        self._key = profiling.new_key()
         self.device = resolve_device(device)
         if recon not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown recon {recon!r}")
@@ -250,16 +255,19 @@ class MultiStreamVideoDecoder:
         self.window = window
         self.emit_rgba = emit_rgba
         self.parsers = []
-        for data in sources:
-            data = bytes(data)
-            p = native_mod.NativePipeline() \
-                if data[:4] == b"\x00\x00\x01\xBA" \
-                else native_mod.NativeVideoParser()
-            p.feed(data)
-            p.signal_end()
-            if not p.has_header():
-                raise ValueError("source without a sequence header")
-            self.parsers.append(p)
+        with profiling.span("mpeg.open", self._key):
+            for data in sources:
+                with profiling.span("mpeg.open.copy", self._key):
+                    data = bytes(data)
+                with profiling.span("mpeg.open.parser", self._key):
+                    p = native_mod.NativePipeline() \
+                        if data[:4] == b"\x00\x00\x01\xBA" \
+                        else native_mod.NativeVideoParser()
+                    p.feed(data)
+                    p.signal_end()
+                if not p.has_header():
+                    raise ValueError("source without a sequence header")
+                self.parsers.append(p)
         self.geom = self.parsers[0].geom()
         for p in self.parsers[1:]:
             if p.geom() != self.geom:
@@ -316,92 +324,100 @@ class MultiStreamVideoDecoder:
         Pool growth mid-window copies the partially-filled buffers into
         the grown layout and RESUMES (the parsers have consumed those
         pictures; only the pending picture is re-emitted)."""
-        gw = self.n * self.window
-        closed = lambda: self._closed   # noqa: E731
-        if self._slots is None:
-            self._slots = [_Slot(self.geom, gw, self._kmg, self._keg,
-                                 self.device) for _ in range(2)]
-            self._slot_i = 0
-        slot = self._slots[self._slot_i]
-        # Reuse barrier, two parts: wait until the consumer HANDED the
-        # slot back (evt — stored the gate or skipped the dispatch), then
-        # on the gate itself: the copies must have read these buffers
-        # before the parser overwrites them.
-        slot.wait(closed)
-        v = slot.views
-        nm = ne = pm = pe = 0
-        for s, p in enumerate(self.parsers):
-            w_done = s * self.window
-            end = (s + 1) * self.window
-            while w_done < end:
-                n, nm, ne, pending, pm, pe = p.blob_window(
-                    w_done, end, self._kmg, self._keg, nm, ne,
-                    v["main_rec"], v["esc_didx"], v["esc_val"],
-                    v["mv_h"], v["mv_v"], v["nbcls"], v["mbmisc"],
-                    v["flags"], slot.types,
-                    hw_nm=0, hw_ne=0,   # one numpy pad below instead
-                    prev_m=pm, prev_e=pe)
-                w_done += n
-                if pending == 0:
-                    break   # stream dry (tail slots zeroed by impl)
-                # Global pool overflow: grow the sticky buckets, copy
-                # the partial window into the new layout (the delta
-                # chain is self-contained), resume at this parser.
-                cm, ce = p.blob_counts()
-                span = gw * self.geom.mb_size * 6 * 64
-                slack = (span >> 16) + gw + 2
-                self._kmg = pool_bucket(nm + cm + slack, self._kmg)
-                self._keg = pool_bucket(ne + ce + slack, self._keg)
-                old_types = slot.types
-                old_v = v
-                # Every old slot's copies complete before the old layout
-                # is dropped.
-                for other in self._slots:
-                    other.wait(closed)
+        with profiling.span("mpeg.parse", self._key):
+            gw = self.n * self.window
+            closed = lambda: self._closed   # noqa: E731
+            if self._slots is None:
                 self._slots = [_Slot(self.geom, gw, self._kmg, self._keg,
                                      self.device) for _ in range(2)]
                 self._slot_i = 0
-                slot = self._slots[0]
-                v = slot.views
-                for k in old_v:
-                    v[k][:old_v[k].size] = old_v[k]
-                slot.types[:] = old_types
-                # Copied prefixes end in the OLD layout's zero pad
-                # tails; beyond them the fresh-slot full hwm pads below.
-        # Zero the pad tails down from the previous fill (or the full
-        # capacity for a fresh slot) — the prefix-transfer contract
-        # needs [fill, bucket) to be zero records.
-        hwm_m, hwm_e = slot.hwm
-        if hwm_m > nm:
-            slot.main[4 * nm:4 * hwm_m] = 0
-        if hwm_e > ne:
-            v["esc_didx"][ne:hwm_e] = 0
-            v["esc_val"][ne:hwm_e] = 0
-        slot.hwm = (nm, ne)
-        self._slot_i = (self._slot_i + 1) % len(self._slots)
-        slot.evt.clear()   # handed out; the consumer sets it back after
-                           # storing the gate (or skipping the dispatch)
-        # types is COPIED out: the consumer reads it on the host after
-        # it hands the slot back, at which point a prefetch producer
-        # may already be refilling the slot's buffers.
-        return (slot, slot.types.reshape(self.n, self.window).copy(), nm,
-                (self._kmg, self._keg))
+            slot = self._slots[self._slot_i]
+            # Reuse barrier, two parts: wait until the consumer HANDED the
+            # slot back (evt — stored the gate or skipped the dispatch), then
+            # on the gate itself: the copies must have read these buffers
+            # before the parser overwrites them.
+            slot.wait(closed)
+            v = slot.views
+            nm = ne = pm = pe = 0
+            for s, p in enumerate(self.parsers):
+                w_done = s * self.window
+                end = (s + 1) * self.window
+                while w_done < end:
+                    n, nm, ne, pending, pm, pe = p.blob_window(
+                        w_done, end, self._kmg, self._keg, nm, ne,
+                        v["main_rec"], v["esc_didx"], v["esc_val"],
+                        v["mv_h"], v["mv_v"], v["nbcls"], v["mbmisc"],
+                        v["flags"], slot.types,
+                        hw_nm=0, hw_ne=0,   # one numpy pad below instead
+                        prev_m=pm, prev_e=pe)
+                    w_done += n
+                    if pending == 0:
+                        break   # stream dry (tail slots zeroed by impl)
+                    # Global pool overflow: grow the sticky buckets, copy
+                    # the partial window into the new layout (the delta
+                    # chain is self-contained), resume at this parser.
+                    profiling.count("pool_growths")
+                    cm, ce = p.blob_counts()
+                    span = gw * self.geom.mb_size * 6 * 64
+                    slack = (span >> 16) + gw + 2
+                    self._kmg = pool_bucket(nm + cm + slack, self._kmg)
+                    self._keg = pool_bucket(ne + ce + slack, self._keg)
+                    old_types = slot.types
+                    old_v = v
+                    # Every old slot's copies complete before the old layout
+                    # is dropped.
+                    for other in self._slots:
+                        other.wait(closed)
+                    self._slots = [_Slot(self.geom, gw, self._kmg, self._keg,
+                                         self.device) for _ in range(2)]
+                    self._slot_i = 0
+                    slot = self._slots[0]
+                    v = slot.views
+                    for k in old_v:
+                        v[k][:old_v[k].size] = old_v[k]
+                    slot.types[:] = old_types
+                    # Copied prefixes end in the OLD layout's zero pad
+                    # tails; beyond them the fresh-slot full hwm pads below.
+            # Zero the pad tails down from the previous fill (or the full
+            # capacity for a fresh slot) — the prefix-transfer contract
+            # needs [fill, bucket) to be zero records.
+            hwm_m, hwm_e = slot.hwm
+            if hwm_m > nm:
+                slot.main[4 * nm:4 * hwm_m] = 0
+            if hwm_e > ne:
+                v["esc_didx"][ne:hwm_e] = 0
+                v["esc_val"][ne:hwm_e] = 0
+            slot.hwm = (nm, ne)
+            self._slot_i = (self._slot_i + 1) % len(self._slots)
+            slot.evt.clear()   # handed out; the consumer sets it back after
+                               # storing the gate (or skipping the dispatch)
+            # types is COPIED out: the consumer reads it on the host after
+            # it hands the slot back, at which point a prefetch producer
+            # may already be refilling the slot's buffers.
+            return (slot, slot.types.reshape(self.n, self.window).copy(), nm,
+                    (self._kmg, self._keg))
 
     # -- device round --------------------------------------------------------
 
     def _ensure_device(self, caps):
-        if self._decode is None or self._caps != caps:
-            self._decode = GlobalWindowDecoder(
-                self.geom, self.n, self.window, caps[0], caps[1],
-                self.chunks, emit_rgba=self.emit_rgba).to(self.device)
-            self._caps = caps
-        if self._carry is None:
-            self._carry = initial_carry(self.geom, self.n, self.device)
+        if self._decode is not None and self._caps == caps and \
+                self._carry is not None:
+            return
+        profiling.count("state_builds")
+        with profiling.span("mpeg.state", self._key):
+            if self._decode is None or self._caps != caps:
+                self._decode = GlobalWindowDecoder(
+                    self.geom, self.n, self.window, caps[0], caps[1],
+                    self.chunks, emit_rgba=self.emit_rgba).to(self.device)
+                self._caps = caps
+            if self._carry is None:
+                self._carry = initial_carry(self.geom, self.n, self.device)
 
     def _next_filled(self):
         """The next parsed global window — prefetched or inline."""
         if not self._prefetch:
-            return self._fill()
+            with profiling.span("mpeg.parse.wait", self._key):
+                return self._fill()
         import queue
         import weakref
         if self._pf_thread is None:
@@ -441,7 +457,8 @@ class MultiStreamVideoDecoder:
             self._pf_thread = threading.Thread(target=producer,
                                                daemon=True)
             self._pf_thread.start()
-        item = self._pf_queue.get()
+        with profiling.span("mpeg.parse.wait", self._key):
+            item = self._pf_queue.get()
         if isinstance(item, BaseException):
             self._pf_thread = None
             self._closed = True
@@ -471,63 +488,67 @@ class MultiStreamVideoDecoder:
 
     def decode_window(self) -> Optional[list]:
         """One lockstep round; None when every stream is exhausted."""
-        if self._closed:
-            return None
-        t0 = time.perf_counter()
-        slot, types, nm, caps = self._next_filled()
-        t_parse = time.perf_counter() - t0
-        self._ensure_device(caps)
-        if not types.any():
-            slot.evt.set()   # nothing dispatched; slot reusable as-is
-            # All streams dry this round: flush pending reference frames.
-            pool, slots = self._carry
-            out = [[] for _ in range(self.n)]
-            any_flush = False
+        with profiling.span("mpeg.window", self._key):
+            if self._closed:
+                return None
+            t0 = time.perf_counter()
+            slot, types, nm, caps = self._next_filled()
+            t_parse = time.perf_counter() - t0
+            self._ensure_device(caps)
+            if not types.any():
+                slot.evt.set()   # nothing dispatched; slot reusable as-is
+                # All streams dry this round: flush pending reference frames.
+                pool, slots = self._carry
+                out = [[] for _ in range(self.n)]
+                any_flush = False
+                for s in range(self.n):
+                    if self._has_ref[s] and not self._flushed[s] and \
+                            self._last_type[s] != PICTURE_TYPE_B:
+                        frame = pool[slots[s, 2]]   # backward
+                        out[s] = [flat_frame_to_rgba(frame, self.geom)
+                                  if self.emit_rgba else frame.clone()]
+                        self._flushed[s] = True
+                        any_flush = True
+                return out if any_flush else None
+
+            # At least one stream produced pictures this round: both copies
+            # (meta+escape, then the main records' bucket) are enqueued on the
+            # copy stream and the slot goes back with their gate, on which the
+            # filler waits before it writes the slot again.
+            t1 = time.perf_counter()
+            kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
+            with profiling.span("mpeg.enqueue", self._key):
+                with profiling.span("mpeg.h2d", self._key):
+                    (meta_esc, main_part), gate = device_put(
+                        [slot.meta_host, slot.main_host[:4 * kt]], self.device)
+                flags = slot.views["flags"].copy()
+                slot.gate = gate
+                slot.evt.set()
+                with profiling.span("mpeg.launch", self._key):
+                    self._carry, disps = self._decode(self._carry, meta_esc,
+                                                      main_part, flags)
+            if self.stats is not None:
+                self.stats.record_window(
+                    int(np.count_nonzero(types)),
+                    meta_esc.numel() + main_part.numel(), t_parse,
+                    time.perf_counter() - t1)
+
+            out = []
             for s in range(self.n):
-                if self._has_ref[s] and not self._flushed[s] and \
-                        self._last_type[s] != PICTURE_TYPE_B:
-                    frame = pool[slots[s, 2]]   # backward
-                    out[s] = [flat_frame_to_rgba(frame, self.geom)
-                              if self.emit_rgba else frame.clone()]
-                    self._flushed[s] = True
-                    any_flush = True
-            return out if any_flush else None
-
-        # At least one stream produced pictures this round: both copies
-        # (meta+escape, then the main records' bucket) are enqueued on the
-        # copy stream and the slot goes back with their gate, on which the
-        # filler waits before it writes the slot again.
-        t1 = time.perf_counter()
-        kt = min(pool_bucket(max(nm, 1), _MIN_KM), caps[0])
-        (meta_esc, main_part), gate = device_put(
-            [slot.meta_host, slot.main_host[:4 * kt]], self.device)
-        flags = slot.views["flags"].copy()
-        slot.gate = gate
-        slot.evt.set()
-        self._carry, disps = self._decode(self._carry, meta_esc, main_part,
-                                          flags)
-        if self.stats is not None:
-            self.stats.record_window(
-                int(np.count_nonzero(types)),
-                meta_esc.numel() + main_part.numel(), t_parse,
-                time.perf_counter() - t1)
-
-        out = []
-        for s in range(self.n):
-            frames = []
-            for w in range(self.window):
-                t = int(types[s, w])
-                if t == 0:
-                    continue
-                self._last_type[s] = t
-                if t == PICTURE_TYPE_B:
-                    frames.append(disps[s, w])
-                elif self._has_ref[s]:
-                    frames.append(disps[s, w])
-                else:
-                    self._has_ref[s] = True
-            out.append(frames)
-        return out
+                frames = []
+                for w in range(self.window):
+                    t = int(types[s, w])
+                    if t == 0:
+                        continue
+                    self._last_type[s] = t
+                    if t == PICTURE_TYPE_B:
+                        frames.append(disps[s, w])
+                    elif self._has_ref[s]:
+                        frames.append(disps[s, w])
+                    else:
+                        self._has_ref[s] = True
+                out.append(frames)
+            return out
 
     def decode_all(self) -> list:
         """Run every stream to completion; returns per-stream frame

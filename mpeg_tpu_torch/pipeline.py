@@ -28,6 +28,7 @@ import numpy as np
 
 from .audio import Audio
 from .buffer import Buffer
+from .utils import profiling
 from .video import Video
 
 
@@ -161,12 +162,13 @@ class PipelineVideo(Video):
         return True
 
     def _native_next_plan(self):
-        while True:
-            item = self._pipe.parse_next_plan()
-            if item is not None:
-                return item
-            if not self._feeder.feed_next(self._pipe):
-                return self._pipe.parse_next_plan()
+        with profiling.span("mpeg.video.plan", self._key):
+            while True:
+                item = self._pipe.parse_next_plan()
+                if item is not None:
+                    return item
+                if not self._feeder.feed_next(self._pipe):
+                    return self._pipe.parse_next_plan()
 
     def rewind(self) -> None:
         """Clock/reference reset only — the owning MPEG resets the
@@ -255,17 +257,18 @@ class PipelineAudio(Audio):
             self._anchor_pending = False
 
     def _native_next_frame(self):
-        self._native_feed()
-        while True:
-            out = self._native.parse_next_frame()
-            if out is None and not self._feeder.feed_next(self._pipe):
+        with profiling.span("mpeg.audio.frame", self._key):
+            self._native_feed()
+            while True:
                 out = self._native.parse_next_frame()
-                if out is None:
-                    return None
-            if out is not None:
-                self._native_sync_header()
-                self._maybe_anchor()
-                return out
+                if out is None and not self._feeder.feed_next(self._pipe):
+                    out = self._native.parse_next_frame()
+                    if out is None:
+                        return None
+                if out is not None:
+                    self._native_sync_header()
+                    self._maybe_anchor()
+                    return out
 
     def rewind(self) -> None:
         """Clock reset only — the owning MPEG resets the pipeline."""

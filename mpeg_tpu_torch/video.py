@@ -33,6 +33,7 @@ from .buffer import Buffer, CorruptStream
 from .device import resolve_device
 from .ops.color import flat_frame_to_rgba
 from .ops.video_recon import FrameGeometry
+from .utils import profiling
 
 
 class Frame:
@@ -167,6 +168,7 @@ class Video:
         cfg = config if config is not None else DEFAULT
         backend = _check_backend(backend, cfg)
         parser = parser if parser is not None else cfg.parser
+        self._key = profiling.new_key()
         self.buf = buf
         self.backend = backend
         self.device = resolve_device(device) if backend == "torch" \
@@ -290,20 +292,21 @@ class Video:
     def _native_next_plan(self):
         """Pull the next picture plan, refilling through the load callback
         exactly like the reference's pull model."""
-        while True:
-            self._native_feed()
-            item = self._native.parse_next_plan()
-            if item is not None:
-                return item
-            before = len(self.buf.data)
-            if self.buf.load_callback is not None:
-                self.buf.load_callback(self.buf)
-            if len(self.buf.data) == before:
-                if self._native_ended():
-                    self._native.signal_end()
-                    self._native_feed()
-                    return self._native.parse_next_plan()
-                return None
+        with profiling.span("mpeg.video.plan", self._key):
+            while True:
+                self._native_feed()
+                item = self._native.parse_next_plan()
+                if item is not None:
+                    return item
+                before = len(self.buf.data)
+                if self.buf.load_callback is not None:
+                    self.buf.load_callback(self.buf)
+                if len(self.buf.data) == before:
+                    if self._native_ended():
+                        self._native.signal_end()
+                        self._native_feed()
+                        return self._native.parse_next_plan()
+                    return None
 
     # -- public surface (parity: video.go:123-268) ---------------------------
 
@@ -621,41 +624,47 @@ class Video:
         if self.backend == "plan":
             self._pending_plans.append((plan, self.picture_type))
             return
-        # Pool-record blob transport (the batch decoders' ABI with
-        # window=1): pack this picture's nonzero coefficients as
-        # delta-encoded records and reconstruct on the device.  Pool
-        # buckets are sticky per decoder, like BatchVideoDecoder's.
-        from .parallel import batch as B
-        item = [(plan, self.picture_type)]
-        # Records computed once and threaded through counting and packing
-        # (each pass is a flatnonzero + divisibility sweep over the dense
-        # plan).
-        records = [B.plan_pool_records(plan)]
-        (mi, _), (ei, _) = B._window_records(item, self.geom.mb_size,
-                                             records)
-        nm = B.delta_encode(mi)[0].size
-        ne = B.delta_encode(ei)[0].size
-        self._blob_km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
-        self._blob_ke = max(self._blob_ke,
-                            B.pool_bucket(max(ne, 1), B._MIN_KE))
-        # Packed in place into a host buffer of this Video's ring (pinned
-        # for the card, two in rotation, each written again only once its
-        # last copy has completed).
-        if self._blob_ring is None:
-            self._blob_ring = B.HostRing(self.device)
-        total = B.blob_layout(self.geom, 1, self._blob_km, self._blob_ke)[1]
-        blob = self._blob_ring.take(total)
-        B.pack_plans_blob(item, self.geom, 1, self._blob_km, self._blob_ke,
-                          records=records, out=blob.numpy())
-        if self._recon is None or \
-                (self._recon.km, self._recon.ke) != (self._blob_km,
-                                                     self._blob_ke):
-            self._recon = B.PictureBlobRecon(
-                self.geom, self._blob_km, self._blob_ke).to(self.device)
-        cur = self.frame_current
-        cur.flat = self._recon(cur.flat, self.frame_forward.flat,
-                               self.frame_backward.flat, blob,
-                               self._blob_ring, fill=nm)
+        with profiling.span("mpeg.video.reconstruct", self._key):
+            # Pool-record blob transport (the batch decoders' ABI with
+            # window=1): pack this picture's nonzero coefficients as
+            # delta-encoded records and reconstruct on the device.  Pool
+            # buckets are sticky per decoder, like BatchVideoDecoder's.
+            from .parallel import batch as B
+            item = [(plan, self.picture_type)]
+            # Records computed once and threaded through counting and
+            # packing (each pass is a flatnonzero + divisibility sweep over
+            # the dense plan).
+            with profiling.span("mpeg.video.records", self._key):
+                records = [B.plan_pool_records(plan)]
+                (mi, _), (ei, _) = B._window_records(
+                    item, self.geom.mb_size, records)
+                nm = B.delta_encode(mi)[0].size
+                ne = B.delta_encode(ei)[0].size
+            self._blob_km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
+            self._blob_ke = max(self._blob_ke,
+                                B.pool_bucket(max(ne, 1), B._MIN_KE))
+            # Packed in place into a host buffer of this Video's ring
+            # (pinned for the card, two in rotation, each written again only
+            # once its last copy has completed).
+            if self._blob_ring is None:
+                self._blob_ring = B.HostRing(self.device)
+            total = B.blob_layout(self.geom, 1, self._blob_km,
+                                  self._blob_ke)[1]
+            with profiling.span("mpeg.video.pack", self._key):
+                blob = self._blob_ring.take(total)
+                B.pack_plans_blob(item, self.geom, 1, self._blob_km,
+                                  self._blob_ke, records=records,
+                                  out=blob.numpy())
+            if self._recon is None or \
+                    (self._recon.km, self._recon.ke) != (self._blob_km,
+                                                         self._blob_ke):
+                self._recon = B.PictureBlobRecon(
+                    self.geom, self._blob_km, self._blob_ke).to(self.device)
+            cur = self.frame_current
+            with profiling.span("mpeg.video.launch", self._key):
+                cur.flat = self._recon(cur.flat, self.frame_forward.flat,
+                                       self.frame_backward.flat, blob,
+                                       self._blob_ring, fill=nm)
 
     def _decode_slice(self, slice_index: int) -> None:
         buf = self.buf
