@@ -122,9 +122,9 @@ class TeeFeeder:
 
 
 class PipelineVideo(Video):
-    """Video surface over the native pipeline: decode() pulls picture
-    plans straight from C++ (which demuxes internally), then reconstructs
-    on the device — same rotation/flush semantics as Video."""
+    """Video surface over the native pipeline: decode() has C++ parse each
+    picture (demuxing internally) and emit its blob, then reconstructs on
+    the device — same rotation/flush semantics as Video."""
 
     def __init__(self, pipe, feeder: ReaderFeeder, backend: str = None,
                  config=None, *, device="cuda"):
@@ -162,13 +162,17 @@ class PipelineVideo(Video):
         return True
 
     def _native_next_plan(self):
+        """The next picture prepared in the pipeline's parser, demuxing
+        and feeding as it needs: (None, picture_type), or None at the
+        end (`Video._native_next_plan`'s contract)."""
         with profiling.span("mpeg.video.plan", self._key):
             while True:
-                item = self._pipe.parse_next_plan()
-                if item is not None:
-                    return item
+                ptype = self._pipe.blob_prepare()
+                if ptype:
+                    return None, ptype
                 if not self._feeder.feed_next(self._pipe):
-                    return self._pipe.parse_next_plan()
+                    ptype = self._pipe.blob_prepare()
+                    return (None, ptype) if ptype else None
 
     def rewind(self) -> None:
         """Clock/reference reset only — the owning MPEG resets the

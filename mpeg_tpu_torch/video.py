@@ -5,13 +5,15 @@ Port of `mpeg_tpu/video.py`:
 - host parse (this file, or the C++ parser through `native`): sequence,
   picture and slice headers, macroblock address/type/CBP VLCs, motion
   vector decode, DC prediction and the AC run/level VLC loop with
-  dequantize+oddify+clip+premultiply (video.go:374-745), emitting one
-  dense picture plan per picture;
+  dequantize+oddify+clip+premultiply (video.go:374-745); the Python
+  parser fills one dense picture plan per picture, the C++ parser keeps
+  each picture inside itself;
 - reconstruction on `device` (backend "torch", the default): each
-  picture's plan ships as a one-picture window blob, the batch decoders'
-  transport, and `parallel.batch.PictureBlobRecon` densifies it and
-  launches K1 (`ops.cuda_kernels.reconstruct_picture`; on the CPU, its
-  plain version) once.
+  picture ships as a one-picture window blob, the batch decoders'
+  transport (packed from the dense plan, or written by the C++ parser's
+  emitter with no plan), and `parallel.batch.PictureBlobRecon` densifies
+  it and launches K1 (`ops.cuda_kernels.reconstruct_picture`; on the CPU,
+  its plain version) once.
 
 Backend "plan" parses only: `parse_next_plan` hands the plans to the
 batch decoders (`BatchVideoDecoder(use_native=False)`).  The JAX
@@ -290,14 +292,17 @@ class Video:
         return True
 
     def _native_next_plan(self):
-        """Pull the next picture plan, refilling through the load callback
-        exactly like the reference's pull model."""
+        """Parse the next picture into the native parser (`blob_prepare`:
+        it stays there until `_reconstruct` emits it), refilling through
+        the load callback exactly like the reference's pull model.
+        Returns (None, picture_type), or None at the end of the data: the
+        parser holds the picture, so there is no dense plan."""
         with profiling.span("mpeg.video.plan", self._key):
             while True:
                 self._native_feed()
-                item = self._native.parse_next_plan()
-                if item is not None:
-                    return item
+                ptype = self._native.blob_prepare()
+                if ptype:
+                    return None, ptype
                 before = len(self.buf.data)
                 if self.buf.load_callback is not None:
                     self.buf.load_callback(self.buf)
@@ -305,7 +310,8 @@ class Video:
                     if self._native_ended():
                         self._native.signal_end()
                         self._native_feed()
-                        return self._native.parse_next_plan()
+                        ptype = self._native.blob_prepare()
+                        return (None, ptype) if ptype else None
                     return None
 
     # -- public surface (parity: video.go:123-268) ---------------------------
@@ -450,8 +456,9 @@ class Video:
         return frame
 
     def _decode_with_native(self) -> Optional[Frame]:
-        """decode() with the C++ parser supplying picture plans; frame
-        rotation/selection semantics identical to the python path."""
+        """decode() with the C++ parser preparing each picture (and
+        `_reconstruct` emitting its blob); frame rotation/selection
+        semantics identical to the python path."""
         is_ref_types = (T.PICTURE_TYPE_INTRA, T.PICTURE_TYPE_PREDICTIVE)
         frame = None
         while True:
@@ -626,35 +633,19 @@ class Video:
             return
         with profiling.span("mpeg.video.reconstruct", self._key):
             # Pool-record blob transport (the batch decoders' ABI with
-            # window=1): pack this picture's nonzero coefficients as
-            # delta-encoded records and reconstruct on the device.  Pool
-            # buckets are sticky per decoder, like BatchVideoDecoder's.
+            # window=1): this picture's nonzero coefficients as
+            # delta-encoded records, reconstructed on the device.  Pool
+            # buckets are sticky per decoder, like BatchVideoDecoder's.  The
+            # blob is written in place into a host buffer of this Video's
+            # ring (pinned for the card, two in rotation, each written
+            # again only once its last copy has completed).
             from .parallel import batch as B
-            item = [(plan, self.picture_type)]
-            # Records computed once and threaded through counting and
-            # packing (each pass is a flatnonzero + divisibility sweep over
-            # the dense plan).
-            with profiling.span("mpeg.video.records", self._key):
-                records = [B.plan_pool_records(plan)]
-                (mi, _), (ei, _) = B._window_records(
-                    item, self.geom.mb_size, records)
-                nm = B.delta_encode(mi)[0].size
-                ne = B.delta_encode(ei)[0].size
-            self._blob_km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
-            self._blob_ke = max(self._blob_ke,
-                                B.pool_bucket(max(ne, 1), B._MIN_KE))
-            # Packed in place into a host buffer of this Video's ring
-            # (pinned for the card, two in rotation, each written again only
-            # once its last copy has completed).
             if self._blob_ring is None:
                 self._blob_ring = B.HostRing(self.device)
-            total = B.blob_layout(self.geom, 1, self._blob_km,
-                                  self._blob_ke)[1]
-            with profiling.span("mpeg.video.pack", self._key):
-                blob = self._blob_ring.take(total)
-                B.pack_plans_blob(item, self.geom, 1, self._blob_km,
-                                  self._blob_ke, records=records,
-                                  out=blob.numpy())
+            if self.parser == "native":
+                blob, nm = self._native_picture_blob()
+            else:
+                blob, nm = self._plan_picture_blob(plan)
             if self._recon is None or \
                     (self._recon.km, self._recon.ke) != (self._blob_km,
                                                          self._blob_ke):
@@ -665,6 +656,73 @@ class Video:
                 cur.flat = self._recon(cur.flat, self.frame_forward.flat,
                                        self.frame_backward.flat, blob,
                                        self._blob_ring, fill=nm)
+
+    def _grow_blob_pools(self, nm: int, ne: int) -> None:
+        """Size the sticky pool buckets to hold `nm` main and `ne` escape
+        records; each growth counts in `pool_growths`."""
+        from .parallel import batch as B
+        km = max(self._blob_km, B.pool_bucket(nm, B._MIN_KM))
+        ke = max(self._blob_ke, B.pool_bucket(max(ne, 1), B._MIN_KE))
+        if (km, ke) != (self._blob_km, self._blob_ke):
+            profiling.count("pool_growths")
+            self._blob_km, self._blob_ke = km, ke
+
+    def _plan_picture_blob(self, plan):
+        """The Python parser's dense plan packed as a one-picture blob:
+        (blob, main records filled)."""
+        from .parallel import batch as B
+        item = [(plan, self.picture_type)]
+        # Records computed once and threaded through counting and packing
+        # (each pass is a flatnonzero + divisibility sweep over the dense
+        # plan).
+        with profiling.span("mpeg.video.records", self._key):
+            records = [B.plan_pool_records(plan)]
+            (mi, _), (ei, _) = B._window_records(
+                item, self.geom.mb_size, records)
+            nm = B.delta_encode(mi)[0].size
+            ne = B.delta_encode(ei)[0].size
+            self._grow_blob_pools(nm, ne)
+        km, ke = self._blob_km, self._blob_ke
+        with profiling.span("mpeg.video.pack", self._key):
+            blob = self._blob_ring.take(B.blob_layout(self.geom, 1, km, ke)[1])
+            B.pack_plans_blob(item, self.geom, 1, km, ke, records=records,
+                              out=blob.numpy())
+        return blob, nm
+
+    def _native_picture_blob(self):
+        """The native parser's prepared picture (`blob_prepare`), emitted
+        by its C++ emitter straight into a buffer of the ring as a
+        one-picture blob, with no dense plan: (blob, main records filled).
+        The emit writes every field of the blob, pads included."""
+        from .parallel import batch as B
+        # The emitter's capacity check allows for the hop records of a
+        # whole picture's index span, so the buckets are sized with that
+        # slack (as `_native_window_blob` sizes a window's) and the first
+        # emit fits; a picture left pending grows them and emits again.
+        hop_slack = (self.geom.mb_size * 6 * 64 >> 16) + 3
+        types = np.zeros(1, np.int32)
+        with profiling.span("mpeg.video.records", self._key):
+            cm, ce = self._native.blob_counts()
+            self._grow_blob_pools(cm + hop_slack, ce + hop_slack)
+        with profiling.span("mpeg.video.pack", self._key):
+            while True:
+                km, ke = self._blob_km, self._blob_ke
+                blob = self._blob_ring.take(
+                    B.blob_layout(self.geom, 1, km, ke)[1])
+                v = B.blob_views(blob, self.geom, 1, km, ke)
+                n, nm, _, pending, _, _ = self._native.blob_window(
+                    0, 1, km, ke, 0, 0, v["main_rec"], v["esc_didx"],
+                    v["esc_val"], v["mv_h"], v["mv_v"], v["nbcls"],
+                    v["mbmisc"], v["flags"], types)
+                if n:
+                    break
+                if not pending:
+                    raise RuntimeError("the native parser holds no "
+                                       "prepared picture to emit")
+                cm, ce = self._native.blob_counts()
+                self._grow_blob_pools(cm + hop_slack, ce + hop_slack)
+        profiling.count("native_picture_blobs")
+        return blob, nm
 
     def _decode_slice(self, slice_index: int) -> None:
         buf = self.buf

@@ -157,6 +157,92 @@ def test_backends_and_devices(es):
                 make()
 
 
+# -- the native one-picture path: no dense plan -------------------------------
+
+@pytest.fixture
+def no_dense_plan(monkeypatch):
+    """The dense plan and its numpy record pass raise: what decodes under
+    this fixture came from the C++ parser's blob emitter alone."""
+    from mpeg_tpu_torch import video as video_mod
+    from mpeg_tpu_torch.parallel import batch
+
+    def boom(*_a, **_k):
+        raise AssertionError("dense plan on the native interactive path")
+
+    monkeypatch.setattr(video_mod, "_PicturePlan", boom)
+    monkeypatch.setattr(batch, "plan_pool_records", boom)
+
+
+def test_native_video_emits_without_a_dense_plan(es, jax_frames,
+                                                 no_dense_plan):
+    """Video(parser="native") over the ES: each picture's blob comes from
+    the C++ emitter (`native_picture_blobs` one a picture), and its frames
+    equal the JAX Video's."""
+    from mpeg_tpu_torch.utils import profiling
+    video = _port_video(es, "native")
+    with profiling.collect() as col:
+        got = _flats(video, 30)
+    assert len(got) == 30
+    for i, (a, b) in enumerate(zip(got, jax_frames)):
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+    # One picture ahead of the display (the reference frame's delay).
+    assert col.counts["native_picture_blobs"] == 31
+
+
+def test_native_1080p_grows_its_pools_and_equals_python(mpeg1video_path):
+    """The first pictures of the 1080p fixture grow the sticky pool
+    buckets from zero past their floor on the native path, and its frames
+    are bit-exact with the Python parser's dense-plan path."""
+    from mpeg_tpu_torch.parallel import batch
+    from mpeg_tpu_torch.utils import profiling
+    data = (mpeg1video_path.parent / "test1080.m1v").read_bytes()
+    frames, counts, pools = {}, {}, {}
+    for parser in ("native", "python"):
+        video = _port_video(data, parser)
+        with profiling.collect() as col:
+            frames[parser] = _flats(video, 2)
+        counts[parser] = col.counts
+        pools[parser] = (video._blob_km, video._blob_ke)
+    assert counts["native"]["pool_growths"] > 0
+    assert counts["native"]["native_picture_blobs"] == 3
+    assert "native_picture_blobs" not in counts["python"]
+    assert pools["native"][0] > batch._MIN_KM
+    assert len(frames["native"]) == len(frames["python"]) == 2
+    for a, b in zip(frames["native"], frames["python"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prepared_picture_dropped_by_rewind_and_set_state(es):
+    """A picture prepared in the native parser and never emitted (its
+    emit is `_reconstruct`'s) is dropped by a rewind or a `set_state`:
+    what decodes next is exact (the JAX Video rewound at the same frame;
+    a rewind keeps the reference frames, as the reference's does)."""
+    ref = _jax_video(es)
+    _flats(ref, 5)
+    ref.rewind()
+    video = _port_video(es, "native")
+    _flats(video, 5)
+    assert video._native_next_plan() is not None
+    video.rewind()
+    got, want = _flats(video, 8), _flats(ref, 8)
+    assert len(got) == len(want) == 8
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+
+    ref = _port_video(es, "native")
+    _flats(ref, 10)
+    state = ref.get_state()
+    want = _flats(ref, 5)
+    video = _port_video(es, "native")
+    _flats(video, 3)
+    assert video._native_next_plan() is not None
+    video.set_state(state)
+    got = _flats(video, 5)
+    assert len(got) == len(want) == 5
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+
+
 # -- MPEG (tests/test_mpeg.py on the port) -----------------------------------
 
 def new_mpeg(path, **kw):
@@ -292,6 +378,61 @@ def test_loop_and_done(short_ps):
             seen += 1
         assert not m2.has_ended()
     assert seen > n   # wrapped around
+
+
+def _player_output(m) -> tuple:
+    """(frames' Y|Cb|Cr bytes, PCM arrays) of every callback of a
+    decode(1/30) loop to `done`."""
+    frames, pcm = [], []
+    m.set_video_callback(lambda _m, f: frames.append(
+        f.y.tobytes() + f.cb.tobytes() + f.cr.tobytes()))
+    m.set_audio_callback(
+        lambda _m, s: pcm.append(np.asarray(s.interleaved).copy()))
+    steps = 0
+    while not m.done:
+        m.decode(1.0 / 30.0)
+        steps += 1
+        assert steps < 5000, "decode loop did not terminate"
+    return frames, pcm
+
+
+def test_native_player_emits_without_a_dense_plan(short_ps, no_dense_plan):
+    """MPEG over a PS, decode(1/30) with both callbacks on the native
+    pipeline: no dense plan built, one native blob a picture, and every
+    frame and PCM frame equal to the JAX MPEG's."""
+    from mpeg_tpu_torch.utils import profiling
+    m = tmpeg.MPEG(short_ps, device="cpu")
+    assert m._pipeline is not None
+    with profiling.collect() as col:
+        frames, pcm = _player_output(m)
+    want_frames, want_pcm = _player_output(
+        jmpeg.MPEG(short_ps, backend="numpy"))
+    assert len(frames) == len(want_frames) > 30
+    assert frames == want_frames
+    assert len(pcm) == len(want_pcm) > 30
+    for i, (a, b) in enumerate(zip(pcm, want_pcm)):
+        np.testing.assert_array_equal(a, b, err_msg=f"audio frame {i}")
+    pictures = sum(1 for sp in col.spans if sp[1] == "mpeg.video.reconstruct")
+    assert col.counts["native_picture_blobs"] == pictures >= len(frames)
+
+
+def test_prepared_picture_dropped_by_seek(short_ps):
+    """A seek between a picture's prepare and its emit: the pipeline's
+    reset drops the prepared picture, and the seek lands on the frame and
+    the samples of a fresh decoder's seek."""
+    def seek_output(prepare: bool):
+        m = tmpeg.MPEG(short_ps, device="cpu")
+        for _ in range(4):
+            m.decode_video()
+        if prepare:
+            assert m.video_decoder._native_next_plan() is not None
+        f = m.seek_frame(0.5, True)
+        return f.time, f.y.copy(), f.cr.copy(), m.decode_audio().interleaved
+
+    got, want = seek_output(True), seek_output(False)
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
 
 
 def _ps_digests(m) -> tuple:

@@ -49,7 +49,7 @@ PARENTS = {
     "mpeg.audio.synth": "mpeg.decode",
 }
 COUNTERS = ("state_builds", "pool_growths", "host_blob_allocs",
-            "host_blob_bytes", "blocks")
+            "host_blob_bytes", "blocks", "native_picture_blobs")
 READERS = ("parse_block_share", "open_share", "pinned_alloc_share",
            "host_blocked_share.batch", "host_blocked_share.av",
            "av_records_share", "idle_outside_spans_share.batch",
