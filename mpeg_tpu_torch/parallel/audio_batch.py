@@ -11,6 +11,13 @@ samples are packed into a pinned host buffer of the decoder's
 `parallel.batch.HostRing` and copied asynchronously (`device_put`): with
 `out_device=True` no call waits for the card; otherwise the PCM's copy
 back is the one wait, as the reference's `np.asarray`.
+
+Under a `utils.profiling` collector a decoder records the batch video
+decoder's spans with its own key (`mpeg.open` and `mpeg.open.parser`,
+`mpeg.window`, `mpeg.parse.wait` and `mpeg.parse`, `mpeg.h2d`,
+`mpeg.launch`, `mpeg.block`), `mpeg.audio.pack` around the packing of a
+window's samples into the ring's buffer, and the counters
+`audio_windows` and `audio_frames`.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ class BatchAudioDecoder:
         device: "cuda" (the default; raises without a card) or "cpu"."""
         if out_format not in ("f32", "s16"):
             raise ValueError(f"unknown out_format {out_format!r}")
+        self._key = profiling.new_key()
         self.device = resolve_device(device)
         self.out_format = out_format
         self.out_device = out_device
@@ -71,22 +79,24 @@ class BatchAudioDecoder:
         self._streaming = streaming
         self._use_native = use_native
         self._prefix = b""
-        if use_native:
-            if data or not streaming:
-                self._make_native(bytes(data))
-        else:
-            import io
-            from ..audio import Audio
-            from ..buffer import Buffer
-            if streaming:
-                buf = Buffer(None)
-                if data:
-                    buf.write(bytes(data))
+        with profiling.span("mpeg.open", self._key):
+            if use_native:
+                if data or not streaming:
+                    self._make_native(bytes(data))
             else:
-                buf = Buffer(io.BytesIO(bytes(data)))
-                buf.set_load_callback(buf.load_reader_callback)
-            # Its parse only: the synthesis runs here, a window at a time.
-            self._py = Audio(buf, parser="python", device="cpu")
+                import io
+                from ..audio import Audio
+                from ..buffer import Buffer
+                if streaming:
+                    buf = Buffer(None)
+                    if data:
+                        buf.write(bytes(data))
+                else:
+                    buf = Buffer(io.BytesIO(bytes(data)))
+                    buf.set_load_callback(buf.load_reader_callback)
+                # Its parse only: the synthesis runs here, a window at a
+                # time.
+                self._py = Audio(buf, parser="python", device="cpu")
 
         self._hist = None
         self._ring = None   # HostRing of the window samples (dispatch only)
@@ -123,12 +133,7 @@ class BatchAudioDecoder:
                         return
                     try:
                         t0 = time.perf_counter()
-                        frames = []
-                        while len(frames) < dec.window:
-                            f = dec._parse_frame()
-                            if f is None:
-                                break
-                            frames.append(f)
+                        frames = dec._parse_frames(dec.window)
                         if dec.stats is not None:
                             dec.stats.host_seconds += \
                                 time.perf_counter() - t0
@@ -189,16 +194,17 @@ class BatchAudioDecoder:
             if len(self._prefix) < 4:
                 return
             data, self._prefix = self._prefix, b""
-        if data[:4] == b"\x00\x00\x01\xBA":
-            # MPEG-PS container: fully-native demux + MP2 parse.
-            self._pipeline = self._native_mod.NativePipeline()
-            target = self._pipeline
-        else:
-            self.native = self._native_mod.NativeAudioParser()
-            target = self.native
-        target.feed(data)
-        if not self._streaming:
-            target.signal_end()
+        with profiling.span("mpeg.open.parser", self._key):
+            if data[:4] == b"\x00\x00\x01\xBA":
+                # MPEG-PS container: fully-native demux + MP2 parse.
+                self._pipeline = self._native_mod.NativePipeline()
+                target = self._pipeline
+            else:
+                self.native = self._native_mod.NativeAudioParser()
+                target = self.native
+            target.feed(data)
+            if not self._streaming:
+                target.signal_end()
 
     def feed(self, data: bytes) -> None:
         """Streaming mode: push more source bytes (MP2 ES or PS)."""
@@ -263,6 +269,18 @@ class BatchAudioDecoder:
         a.next_frame_data_size = 0
         return out
 
+    def _parse_frames(self, want: int) -> list:
+        """Up to `want` frames' subband samples, fewer where the source
+        has no more (yet)."""
+        frames = []
+        with profiling.span("mpeg.parse", self._key):
+            while len(frames) < want:
+                f = self._parse_frame()
+                if f is None:
+                    break
+                frames.append(f)
+        return frames
+
     def decode_window(self):
         """Decode up to `window` frames; returns interleaved samples
         [n_frames * 2304] (float32, or int16 with out_format="s16"; a
@@ -270,12 +288,17 @@ class BatchAudioDecoder:
         None at end of stream (or, in streaming mode, when a full window
         hasn't accumulated yet — the block history advances in whole
         windows, so partial windows only flush after signal_end)."""
+        with profiling.span("mpeg.window", self._key):
+            return self._decode_window()
+
+    def _decode_window(self):
         if self._closed:
             return None
         if self._prefetch_q is not None:
             if self._prefetch_done:
                 return None
-            frames = self._prefetch_q.get()
+            with profiling.span("mpeg.parse.wait", self._key):
+                frames = self._prefetch_q.get()
             if isinstance(frames, BaseException):
                 # Producer failed: poison like close() — windows the
                 # producer parsed past the failure are lost.
@@ -286,11 +309,9 @@ class BatchAudioDecoder:
                 return None
         else:
             t_parse = time.perf_counter()
-            while len(self._pending) < self.window:
-                f = self._parse_frame()
-                if f is None:
-                    break
-                self._pending.append(f)
+            with profiling.span("mpeg.parse.wait", self._key):
+                self._pending += self._parse_frames(
+                    self.window - len(self._pending))
             t_parse = time.perf_counter() - t_parse
             if self.stats is not None:
                 self.stats.host_seconds += t_parse
@@ -310,20 +331,26 @@ class BatchAudioDecoder:
         # card, written again only once its last copy has completed), the
         # tail past n frames zeroed as the reference's np.zeros window.
         n = len(frames)
-        host = self._ring.take(self.window * _FRAME_BYTES)
-        samples = host.numpy().view(np.int32).reshape(self.window, 36, 2, 32)
-        samples[:n] = frames
-        samples[n:] = 0
-        xs, = self._ring.send([host])
+        with profiling.span("mpeg.audio.pack", self._key):
+            host = self._ring.take(self.window * _FRAME_BYTES)
+            samples = host.numpy().view(np.int32).reshape(self.window, 36,
+                                                          2, 32)
+            samples[:n] = frames
+            samples[n:] = 0
+        with profiling.span("mpeg.h2d", self._key):
+            xs, = self._ring.send([host])
         xs = xs.view(torch.int32).view(1, -1, 2, 32)
         # Normalized (or quantized: the d2h is then int16) and interleaved
         # on the device; the window's first n frames.
-        out, self._hist = cuda_kernels.synthesize(xs, self._hist,
-                                                  out=self.out_format)
+        with profiling.span("mpeg.launch", self._key):
+            out, self._hist = cuda_kernels.synthesize(xs, self._hist,
+                                                      out=self.out_format)
+        profiling.count("audio_windows")
+        profiling.count("audio_frames", n)
         pcm = out[0, :n * 2304]
         if not self.out_device:
             profiling.count("blocks")
-            with profiling.span("mpeg.block"):
+            with profiling.span("mpeg.block", self._key):
                 pcm = pcm.cpu().numpy()
         if self.stats is not None:
             self.stats.samples += n * 1152

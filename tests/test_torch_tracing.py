@@ -14,13 +14,16 @@ import pytest
 import torch
 
 import mpeg_tpu_torch as mpeg
-from mpeg_tpu_torch.parallel import BatchVideoDecoder, MultiStreamVideoDecoder
+from mpeg_tpu_torch.parallel import (BatchAudioDecoder, BatchVideoDecoder,
+                                     MultiStreamVideoDecoder)
 from mpeg_tpu_torch.utils import profiling
 
 ROOT = pathlib.Path(__file__).parent.parent
 TESTDATA = ROOT / "tests" / "testdata"
 ES = (TESTDATA / "test.mpeg1video").read_bytes()
 PS = (TESTDATA / "test.mpg").read_bytes()
+# 72 frames of the broadcast MP2: windows of 32, 32 and 8 frames.
+MP2 = (TESTDATA / "mp2_48k_joint_256.mp2").read_bytes()[:72 * 768]
 TICKS = 12
 
 # Each span and its parent as the decodes below open them; a parse on the
@@ -223,5 +226,120 @@ def test_readers_read_a_share_and_none_without_spans(monkeypatch, traced,
         assert value > 0.0
     with profiling.collect():
         assert reader.read(reading) == 0.0   # no span, no idle
+    monkeypatch.setattr(profiling, "_last", None)
+    assert reader.read(reading) is None
+
+
+# The MP2 batch decoder's spans (with the decoder's key) and their
+# parents, as an inline parse opens them.
+AUDIO_PARENTS = {
+    "mpeg.open": None,
+    "mpeg.open.parser": "mpeg.open",
+    "mpeg.window": None,
+    "mpeg.parse.wait": "mpeg.window",
+    "mpeg.parse": "mpeg.parse.wait",
+    "mpeg.audio.pack": "mpeg.window",
+    "mpeg.h2d": "mpeg.window",
+    "mpeg.launch": "mpeg.window",
+    "mpeg.block": "mpeg.window",
+}
+
+
+def _batch_audio(**kw):
+    dec = BatchAudioDecoder(MP2, window=32, device="cpu", **kw)
+    windows = []
+    while (pcm := dec.decode_window()) is not None:
+        windows.append(pcm)
+    dec.close()
+    return dec, windows
+
+
+def _keyed(col, dec):
+    names = {s[0]: s[1] for s in col.spans}
+    return [(s[1], names.get(s[2]), s[5]) for s in col.spans
+            if s[3] == dec._key]
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+def test_batch_audio_records_its_spans_and_counters(native):
+    with profiling.collect() as col:
+        dec, windows = _batch_audio(use_native=native)
+    spans = _keyed(col, dec)
+    want = dict(AUDIO_PARENTS)
+    if not native:
+        del want["mpeg.open.parser"]   # the Python parse opens no parser
+    assert {name for name, _, _ in spans} == set(want)
+    for name, parent, main in spans:
+        assert (parent, main) == (want[name], True), name
+    # every span of these names is this decoder's (one key a decoder)
+    assert {s[3] for s in col.spans if s[1] in want
+            and s[1] != "mpeg.block"} == {dec._key}
+    assert [len(w) // 2304 for w in windows] == [32, 32, 8]
+    assert col.counts["audio_windows"] == len(windows) == \
+        sum(1 for name, _, _ in spans if name == "mpeg.launch")
+    assert col.counts["audio_frames"] == 72
+
+
+def test_batch_audio_prefetch_parses_on_its_own_thread():
+    with profiling.collect() as col:
+        dec, windows = _batch_audio(prefetch=True)
+    spans = _keyed(col, dec)
+    assert {main for name, _, main in spans if name == "mpeg.parse"} \
+        == {False}
+    assert {(parent, main) for name, parent, main in spans
+            if name == "mpeg.parse"} == {(None, False)}
+    assert {(parent, main) for name, parent, main in spans
+            if name == "mpeg.parse.wait"} == {("mpeg.window", True)}
+    assert col.counts["audio_frames"] == 72
+    assert np.array_equal(np.concatenate(windows),
+                          np.concatenate(_batch_audio()[1]))
+
+
+def test_batch_audio_records_nothing_without_a_collector(monkeypatch):
+    calls = []
+    real = torch.profiler.record_function
+
+    def counted(name):
+        calls.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    monkeypatch.setattr(profiling, "_last", None)
+    _, plain = _batch_audio()
+    assert calls == [] and profiling.last_trace() is None
+    with profiling.collect():
+        _, spanned = _batch_audio()
+    assert "mpeg.audio.pack" in calls
+    assert all(np.array_equal(a, b) for a, b in zip(plain, spanned))
+
+
+MP2_READERS = ("mp2_enqueue_share", "parse_block_share.mp2", "open_share.mp2",
+               "host_blocked_share.mp2", "idle_outside_spans_share.mp2")
+
+
+@pytest.fixture(scope="module")
+def audio_collected():
+    """The MP2 batch decode under `collect`: (its collector, seconds)."""
+    t0 = time.perf_counter()
+    with profiling.collect() as col:
+        _batch_audio()
+    return col, time.perf_counter() - t0
+
+
+@pytest.mark.parametrize("name", MP2_READERS)
+def test_mp2_readers_read_the_audio_decoders_spans(monkeypatch,
+                                                   audio_collected, name):
+    col, seconds = audio_collected
+    reader = _reader(name)
+    reading = types.SimpleNamespace(window_s=seconds)
+    monkeypatch.setattr(profiling, "_last", col)
+    value = reader.read(reading)
+    assert 0.0 <= value <= 100.0
+    if name.startswith(("mp2_enqueue", "parse_block", "open", "host_blocked")):
+        assert value > 0.0
+    with profiling.collect():
+        # no span: the enqueue share leaves itself out, the rest read 0
+        want = None if name == "mp2_enqueue_share" else 0.0
+        assert reader.read(reading) == want
     monkeypatch.setattr(profiling, "_last", None)
     assert reader.read(reading) is None
