@@ -6,6 +6,7 @@ and the benchmark's readers of them."""
 import importlib.util
 import json
 import pathlib
+import threading
 import time
 import types
 
@@ -36,6 +37,7 @@ PARENTS = {
     "mpeg.parse.wait": "mpeg.window",
     "mpeg.parse": "mpeg.parse.wait",
     "mpeg.slot.wait": "mpeg.parse",
+    "mpeg.parse.stream": "mpeg.parse",
     "mpeg.state": "mpeg.window",
     "mpeg.enqueue": "mpeg.window",
     "mpeg.h2d": "mpeg.enqueue",
@@ -52,7 +54,8 @@ PARENTS = {
     "mpeg.audio.synth": "mpeg.decode",
 }
 COUNTERS = ("state_builds", "pool_growths", "host_blob_allocs",
-            "host_blob_bytes", "blocks", "native_picture_blobs")
+            "host_blob_bytes", "blocks", "native_picture_blobs",
+            "parse_workers")
 READERS = ("parse_block_share", "open_share", "pinned_alloc_share",
            "host_blocked_share.batch", "host_blocked_share.av",
            "av_records_share", "idle_outside_spans_share.batch",
@@ -226,6 +229,59 @@ def test_readers_read_a_share_and_none_without_spans(monkeypatch, traced,
         assert value > 0.0
     with profiling.collect():
         assert reader.read(reading) == 0.0   # no span, no idle
+    monkeypatch.setattr(profiling, "_last", None)
+    assert reader.read(reading) is None
+
+
+@pytest.fixture(scope="module")
+def multistream_collected():
+    """A four-stream decode on three fill threads under `collect`: (the
+    decoder, its collector).  The main thread holds its first stream of
+    a fill until a pool thread has taken one since it last looked, so
+    that the first fill and others run on more than one thread."""
+    dec = MultiStreamVideoDecoder([ES[:40000], ES[:30000], ES[:20000],
+                                   ES[:10000]], window=2, device="cpu")
+    dec._parse_workers = 3
+    parse, taken = dec._parse_stream, threading.Event()
+
+    def held(slot, meta, parsed, worker, s):
+        if worker:
+            taken.set()
+        elif s == 0:
+            assert taken.wait(timeout=30)
+            taken.clear()
+        parse(slot, meta, parsed, worker, s)
+
+    dec._parse_stream = held
+    with profiling.collect() as col:
+        dec.decode_all()
+    dec.close()
+    return dec, col
+
+
+def test_multistream_records_a_parse_span_a_stream_and_fill(
+        multistream_collected):
+    dec, col = multistream_collected
+    fills = [s for s in col.spans if s[1] == "mpeg.parse" and s[3] == dec._key]
+    streams = [s for s in col.spans
+               if s[1] == "mpeg.parse.stream" and s[3] == dec._key]
+    assert len(fills) > 3 and len(streams) == 4 * len(fills)
+    # on the main thread under the fill; on the pool's threads alone
+    parents = {s[0]: s[1] for s in col.spans}
+    assert {(parents.get(s[2]), s[5]) for s in streams} == \
+        {("mpeg.parse", True), (None, False)}
+    assert len(fills) < col.counts["parse_workers"] <= 3 * len(fills)
+
+
+def test_parse_parallelism_reads_the_stream_spans(monkeypatch,
+                                                  multistream_collected):
+    _, col = multistream_collected
+    reader = _reader("parse_parallelism")
+    reading = types.SimpleNamespace(window_s=1.0)
+    monkeypatch.setattr(profiling, "_last", col)
+    assert 0.0 < reader.read(reading) <= 3.0 * 1.01
+    with profiling.collect():
+        assert reader.read(reading) is None   # no span
     monkeypatch.setattr(profiling, "_last", None)
     assert reader.read(reading) is None
 
