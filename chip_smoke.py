@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--baseline RECON_CU]
                           [--synth-baseline SYNTH_CU]
-                          [--densify-baseline DENSIFY_CU] [--parent-tree DIR]
+                          [--densify-baseline DENSIFY_CU]
 
 Builds the hand-written CUDA kernels from `mpeg_tpu_torch/csrc` with nvcc
 (recon.cu, synth.cu and densify.cu, each its own library, and the C++
@@ -24,18 +24,19 @@ window 2, the 8-stream shard at window 16, a one-picture blob, malformed
 chains), `DENSIFY_LAUNCHES` launches a call (as the library reports them
 and as torch.profiler sees them), timed beside its bound and its plain
 version; then drives every path
-of the port and checks its output:
+of the port and checks its output (the benchmark's cells, not this
+run, time the single-stream, 64-stream and A/V player paths):
 
 - `golden`: the fixtures and the custom-matrix ES through
   `BatchVideoDecoder(window=16, device="cuda")`, prefetch off and on,
   against their golden hashes;
-- `e2e_1080p`: the 1080p fixture against the C++ host decoder, timed;
+- `e2e_1080p`: the 1080p fixture against the C++ host decoder;
 - `recon_multi_1080p`: the same with K3 (K2 + two plane launches) in
   K1's place, then timed and profiled (K3's device time a picture);
 - `multistream_golden`: four mixed streams in lockstep against solo
   decodes and the goldens;
 - `multistream_1080p`: 64 streams of the 1080p fixture, window 2, every
-  frame against the C++ host decoder, then timed and profiled;
+  frame against the C++ host decoder;
 - `rgba`: the 1080p fixture with `emit_rgba=True` against numpy;
 - `audio`: MP2 through `Audio(device="cuda")` and `BatchAudioDecoder`
   (f32, s16, `out_device`) against the no-FMA golden and each other, K4
@@ -47,7 +48,7 @@ of the port and checks its output:
 - `interactive_1080p`: a 1080p A/V program stream (the 1080p fixture and
   test.mp2, muxed by tools/ps_mux.py) through `MPEG.decode(tick)`, video
   against the C++ host decoder and audio against the CPU, K4 launched
-  once an audio frame, timed;
+  once an audio frame, at most two pageable copies;
 - `dense`: `BatchVideoDecoder(transport="dense")` (the Python parse) on
   the golden, then on the 1080p fixture cut to 9 pictures against the
   blob transport and the C++ host decoder, every copy pinned and the
@@ -76,30 +77,13 @@ of the port and checks its output:
 - `multihost`: `parallel.multihost.launch` as one NCCL process and as two
   gloo processes on the card, each on the golden;
 - `examples`: the seven `examples_torch/` scripts on the card, at once,
-  each in its own process;
-- `bench`: the port's bench leg (`mpeg_tpu_torch.bench`) in this
-  process with a 5 s sustained segment (the long-form leg only where
-  cv2 is importable): its first headline pass (4 looping streams of the
-  1080p fixture x window 16 x 6 rounds, K5 three launches and K1 at
-  most 16 a round) every display against the C++ host decoder over the
-  looping fixture and every copy pinned, then the timed passes, the
-  stage budget, the reconstruct microbenches and every secondary leg
-  (any that raised fails the run), the headline's passes again with
-  `min(4, os.cpu_count())` parse threads, and the mesh mode on the card
-  listed twice; its JSON line goes out in the `bench` line.
+  each in its own process.
 
 `--baseline` (which may be repeated) also builds K1 and K3 from another
 copy of `recon.cu` (an earlier commit's, or an edited copy with another
 ring depth, CTAs a SM or consumer mapping) and times them and this K1
 and K3 in turns (baseline, this, this, baseline) on the fixture's
 pictures, the adversarial plan and (K1) 64-stream launches.
-`--parent-tree DIR` (a checkout of another commit, e.g. the parent's
-unpacked by `git archive` into a git-ignored directory) times the
-end-to-end rates of that tree and of this one in turns, in both orders
-(parent, this, this, parent, this, parent, parent, this; the 64-stream,
-sharded and dense decodes also profiled, each one's h2d card time listed
-turn by turn), each turn a process of its own that imports the package
-from its tree (`--rates-of`).
 `--synth-baseline` (which may be repeated) likewise builds K4 from
 another copy of `synth.cu` with K4's flags, holds its outputs and states
 equal to this K4's on ragged calls and on the timed inputs, and times the
@@ -116,18 +100,20 @@ plain version's `plain_ms` is the wall of back-to-back calls by CUDA
 events (`cuda_ms`), its own host waits included.  K4's plain version (a
 few hundred plain torch launches a call) is also timed on the card by
 CUDA events around CUDA-graph replays (`graph_ms`).  torch.profiler only
-measures the profiled decode passes' idle share and kernel time by name,
-and K5's kernels a call; its device time of K5's launches B and C, which
-start early (programmatic dependent launch), includes their waits for the
-launch before, so it is reported as such and compared with nothing.
+measures the profiled decode passes' (K3's, the dense and the sharded
+decodes') idle share and kernel time by name, and K5's kernels a call;
+its device time of K5's launches B and C, which start early
+(programmatic dependent launch), includes their waits for the launch
+before, so it is reported as such and compared with nothing.
 
 The window transport's own count (`parallel.batch.transport_counts`:
 copies, those from pinned memory, bytes) is read on every decode path
 (single stream, 64 streams, sharded, interactive A/V, dense, sharded
 dense, the MP2 paths) and must show every copy pinned; the profiled
 passes add the h2d copies' card time, rate and share under kernels, and
-the union busy time (`transport_summary`); the interactive pass may
-copy only the decoders' two constant tables from pageable memory.
+the union busy time (`transport_summary`); the interactive pass, run
+under torch.profiler, may copy only the decoders' two constant tables
+from pageable memory.
 Each path's kernel launch counts (the wrappers' counters) are set to 0
 just before it runs and read just after; the MP2 paths also fail if the
 plain filterbank sees a CUDA tensor, and the video paths if the plain
@@ -1350,37 +1336,15 @@ def _native_frames(data: bytes) -> list:
     return frames
 
 
-def _looping_native_frames(data: bytes, loops: int) -> list:
-    """The displayed frames of `data` looped `loops` times, as the bench's
-    streams loop it: the C++ host decoder reset and fed `data` again at
-    each loop's end.  The looping decode carries its frames across the
-    loop, which equals a reset where no picture of a loop predicts from
-    the loop before (the 1080p fixture: I and P pictures only).  (A host
-    decode of the bytes repeated, where the next loop's bytes follow each
-    loop's last picture, gives another last picture of the 1080p
-    fixture.)"""
-    from mpeg_tpu_torch.native import NativeHostDecoder
-
-    ref, frames = NativeHostDecoder(data), []
-    for k in range(loops):
-        if k:
-            ref.reset(data)
-        while (f := ref.decode_next()) is not None:
-            frames.append(f)
-    return frames
-
-
 def _kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "")
 
 
 def _transport_counts():
-    """This tree's transport counts (`parallel.batch.transport_counts`),
-    set to 0; None for a tree without them (a parent's, in turns)."""
+    """The transport counts (`parallel.batch.transport_counts`), set to
+    0."""
     from mpeg_tpu_torch.parallel import batch
 
-    if not hasattr(batch, "transport_counts"):
-        return None
     batch.reset_transport_counts()
     return batch.transport_counts
 
@@ -1461,8 +1425,8 @@ def profiled_pass(run, wall_median: float, kernels=None) -> dict:
     in its `idle_share` line.  `kernels` maps a label to a part of a
     kernel's name (spaces ignored): the pass adds up each label's device
     us and launches.  Also the h2d copies' device time, their overlap
-    with kernels and the union busy time (`_timeline`), and with this
-    tree's transport its own count of the pass and, where the profiler
+    with kernels and the union busy time (`_timeline`), and the
+    transport's own count of the pass and, where the profiler
     recorded each of its copies, their rate over their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1493,13 +1457,12 @@ def profiled_pass(run, wall_median: float, kernels=None) -> dict:
         out[f"{label}_device_us"] = sum(us for us, _ in hits)
         out[f"{label}_launches"] = sum(n for _, n in hits)
     out.update(_timeline(prof, wall_median))
-    if counts is not None:
-        out["transport"] = _counts(counts)
-        # The rate only where the profiler recorded every copy of the
-        # transport (its records carry no byte counts on this torch).
-        if out.get("h2d_pinned_records") == counts.copies and \
-                out.get("h2d_pinned_us"):
-            out["h2d_gb_per_s"] = counts.bytes / out["h2d_pinned_us"] / 1e3
+    out["transport"] = _counts(counts)
+    # The rate only where the profiler recorded every copy of the
+    # transport (its records carry no byte counts on this torch).
+    if out.get("h2d_pinned_records") == counts.copies and \
+            out.get("h2d_pinned_us"):
+        out["h2d_gb_per_s"] = counts.bytes / out["h2d_pinned_us"] / 1e3
     return out
 
 
@@ -1551,12 +1514,10 @@ def phase_golden() -> None:
 def phase_e2e_1080p() -> dict:
     """The single-stream path: the 1080p fixture through the port, all
     frames held against the C++ host decoder, the kernels' launch counts
-    read from that run, then the end-to-end rate over fresh decoders,
-    without and with the parse prefetch thread, in turns, after one
-    untimed warm-up pass of each."""
+    and the transport's count read from that run (the benchmark's
+    m1v1080_single cells time this path)."""
     import torch
 
-    from mpeg_tpu_torch.utils.profiling import DecodeStats
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import BatchVideoDecoder
 
@@ -1590,38 +1551,11 @@ def phase_e2e_1080p() -> dict:
         fail(f"K5 launched {launches['densify_unpack']} times for "
              f"{pictures} pictures in windows of 16")
 
-    passes = {False: [], True: []}
-    for i in range(1 + E2E_PASSES):
-        for prefetch in (False, True):
-            stats = DecodeStats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d = BatchVideoDecoder(data, window=16, device="cuda",
-                                  stats=stats, prefetch=prefetch)
-            n = len(d.decode_all())
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if i == 0:
-                continue                   # warm-up pass: not timed
-            passes[prefetch].append({
-                "frames": n, "wall_s": wall, "fps": n / wall,
-                "parse_s": stats.host_seconds,
-                "h2d_and_enqueue_s": stats.device_seconds})
-    wall_median = statistics.median(p["wall_s"] for p in passes[False])
-    profiled = profiled_pass(lambda: BatchVideoDecoder(
-        data, window=16, device="cuda").decode_all(), wall_median)
-    from mpeg_tpu_torch.device import gpu_name_and_power_limit
-
-    out = {"phase": "e2e_1080p", "card": gpu_name_and_power_limit(),
-           "frames": len(frames), "pictures": pictures,
-           "equal_to_native_host_decoder": True, "launches": launches,
-           "transport": transport, "peak_device_gib": peak_gib,
-           "pinned_host_bytes_held": pinned_bytes,
-           "fps_median": statistics.median(p["fps"] for p in passes[False]),
-           "fps_median_prefetch": statistics.median(
-               p["fps"] for p in passes[True]),
-           "passes": passes[False], "passes_prefetch": passes[True],
-           "profiled_pass": profiled}
+    out = {"phase": "e2e_1080p", "frames": len(frames),
+           "pictures": pictures, "equal_to_native_host_decoder": True,
+           "launches": launches, "transport": transport,
+           "peak_device_gib": peak_gib,
+           "pinned_host_bytes_held": pinned_bytes}
     emit(out)
     return out
 
@@ -1757,14 +1691,10 @@ def phase_multistream_1080p() -> dict:
     """The slice's main path at full width: 64 streams of the 1080p
     fixture (four lengths) in lockstep at window 2, default chunks.  Every
     frame of every stream against the C++ host decoder on that stream's
-    bytes, K1's launches against rounds x window x chunks; then the
-    aggregate displayed frames/s over fresh decoders, without and with
-    the parse prefetch thread, in turns, after one untimed warm-up pass
-    of each; then one profiled pass."""
+    bytes, K1's launches against rounds x window x chunks (the
+    benchmark's m1v1080_64streams cell times this path)."""
     import torch
 
-    from mpeg_tpu_torch.utils.profiling import DecodeStats
-    from mpeg_tpu_torch.device import gpu_name_and_power_limit
     from mpeg_tpu_torch.ops import cuda_kernels
     from mpeg_tpu_torch.parallel import MultiStreamVideoDecoder
 
@@ -1810,42 +1740,15 @@ def phase_multistream_1080p() -> dict:
             cuda_kernels.DENSIFY_LAUNCHES * k5_rounds:
         fail(f"K5 launched {launches['densify_unpack']} times in "
              f"{k5_rounds} rounds that hold pictures")
-    del frames, want
 
-    passes = {False: [], True: []}
-    for i in range(1 + E2E_PASSES):
-        for prefetch in (False, True):
-            stats = DecodeStats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d = MultiStreamVideoDecoder(streams, window=2, device="cuda",
-                                        prefetch=prefetch, stats=stats)
-            n = sum(len(f) for f in d.decode_all())
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if i == 0:
-                continue                   # warm-up pass: not timed
-            passes[prefetch].append({
-                "frames": n, "wall_s": wall, "fps": n / wall,
-                "parse_wait_s": stats.host_seconds,
-                "h2d_and_enqueue_s": stats.device_seconds})
-    wall_median = statistics.median(p["wall_s"] for p in passes[False])
-    profiled = profiled_pass(lambda: MultiStreamVideoDecoder(
-        streams, window=2, device="cuda").decode_all(), wall_median,
-        K5_KERNELS)
-    out = {"phase": "multistream_1080p", "card": gpu_name_and_power_limit(),
-           "streams": N_STREAMS, "window": ms.window, "chunks": ms.chunks,
+    out = {"phase": "multistream_1080p", "streams": N_STREAMS,
+           "window": ms.window, "chunks": ms.chunks,
            "stream_pictures_kept": list(STREAM_CUTS), "rounds": rounds,
            "frames": n_frames, "equal_to_native_host_decoder": True,
            "launches": launches, "k1_launch_bound": bound,
            "transport": transport, "pinned_host_bytes_held": pinned_bytes,
            # the checked pass's peak: it keeps every frame, as decode_all
-           "peak_device_gib": peak_gib,
-           "fps_median": statistics.median(p["fps"] for p in passes[False]),
-           "fps_median_prefetch": statistics.median(
-               p["fps"] for p in passes[True]),
-           "passes": passes[False], "passes_prefetch": passes[True],
-           "profiled_pass": profiled}
+           "peak_device_gib": peak_gib}
     emit(out)
     return out
 
@@ -2267,18 +2170,15 @@ def phase_interactive_1080p() -> dict:
     audio against `MPEG(..., device="cpu")` on the same bytes, K1's
     and K4's launches read from that run (once a picture, once an audio
     frame; no plain filterbank op on the card), one pinned copy a picture
-    and one an audio frame; then timed (median of 3 after a
-    warm-up): video and audio frames/s, the share of the wall in the host
-    parse (the pipeline's picture and frame pulls), in each picture's
-    blob pack, transfer and launches (`Video._reconstruct`) and in each
-    audio frame's synthesis (`Audio._synthesize`); and one profiled
-    pass, with at most the two constant tables copied from pageable
-    memory where the profiler recorded the card."""
+    and one an audio frame, and at most the two constant tables copied
+    from pageable memory where torch.profiler recorded the card (the
+    benchmark's ps1080_av_player cell times this path)."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from mpeg_tpu_torch import MPEG
-    from mpeg_tpu_torch.device import gpu_name_and_power_limit
     from mpeg_tpu_torch.ops import cuda_kernels
 
     ps = _ps_1080p()
@@ -2292,10 +2192,11 @@ def phase_interactive_1080p() -> dict:
     torch.cuda.reset_peak_memory_stats()
     counts = _transport_counts()
     cuda_kernels.reset_launches()
-    with no_plain_synthesis():
+    with no_plain_synthesis(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
         _clock_decode(m, lambda _m, f: frames.append(f.flat.clone()),
                       lambda _m, smp: pcm.append(smp.interleaved.copy()))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     transport = check_transport(counts, "interactive 1080p")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = cuda_kernels.reconstruct_picture.launches
@@ -2320,84 +2221,22 @@ def phase_interactive_1080p() -> dict:
     if transport["copies"] != pictures + len(pcm):
         fail(f"interactive 1080p: {transport['copies']} copies for "
              f"{pictures} pictures and {len(pcm)} audio frames")
-    del frames
-
-    passes = []
-
-    def timed_pass():
-        m = MPEG(ps, device="cuda")
-        parse = [0.0]
-        m.has_headers()
-
-        def timed(fn):
-            def run(*a):
-                t0 = time.perf_counter()
-                try:
-                    return fn(*a)
-                finally:
-                    parse[0] += time.perf_counter() - t0
-            return run
-
-        m.video()._native_next_plan = timed(m.video()._native_next_plan)
-        m.audio()._native_next_frame = timed(m.audio()._native_next_frame)
-        recon = [0.0]
-        video_recon = m.video()._reconstruct
-
-        def timed_recon():
-            t0 = time.perf_counter()
-            video_recon()
-            recon[0] += time.perf_counter() - t0
-
-        m.video()._reconstruct = timed_recon
-        synth = [0.0]
-        audio_synth = m.audio()._synthesize
-
-        def timed_synth(samples):
-            t0 = time.perf_counter()
-            audio_synth(samples)
-            synth[0] += time.perf_counter() - t0
-
-        m.audio()._synthesize = timed_synth
-        counts = [0, 0]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _clock_decode(m, lambda _m, f: counts.__setitem__(0, counts[0] + 1),
-                      lambda _m, smp: counts.__setitem__(1, counts[1] + 1))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        passes.append({"frames": counts[0], "audio_frames": counts[1],
-                       "wall_s": wall, "fps": counts[0] / wall,
-                       "audio_fps": counts[1] / wall, "parse_s": parse[0],
-                       "parse_share": parse[0] / wall,
-                       "pack_and_enqueue_s": recon[0],
-                       "pack_and_enqueue_share": recon[0] / wall,
-                       "synthesis_s": synth[0],
-                       "synthesis_share": synth[0] / wall})
-
-    _passes(timed_pass)
-    passes = passes[1:]                    # the warm-up pass: not timed
-    med = lambda k: statistics.median(p[k] for p in passes)  # noqa: E731
-    profiled = profiled_pass(
-        lambda: _clock_decode(MPEG(ps, device="cuda"), lambda _m, f: None,
-                              lambda _m, smp: None), med("wall_s"),
-        K5_KERNELS)
     # Pageable copies left: the decoders' two constant tables, copied
     # once a decoder (`PictureBlobRecon`'s premultipliers and classes).
-    if profiled.get("h2d_pageable_records", 0) > 2:
-        fail(f"interactive 1080p: {profiled['h2d_pageable_records']} "
-             "pageable copies in the profiled pass")
-    out = {"phase": "interactive_1080p", "card": gpu_name_and_power_limit(),
-           "bytes": len(ps), "frames": 32, "pictures": pictures,
+    h2d = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name.startswith("Memcpy HtoD")]
+    pageable = sum("Pageable" in name for name in h2d)
+    if pageable > 2:
+        fail(f"interactive 1080p: {pageable} pageable copies")
+    out = {"phase": "interactive_1080p", "bytes": len(ps), "frames": 32,
+           "pictures": pictures,
            "audio_frames": len(pcm), "equal_to_native_host_decoder": True,
            "audio_equal_to_cpu": True, "k1_launches": launches,
            # a copy a picture and a copy an audio frame
            "transport": transport, "peak_device_gib": peak_gib,
            "k4_launches": k4_launches, "k5_launches": k5_launches,
-           "fps_median": med("fps"), "audio_fps_median": med("audio_fps"),
-           "parse_share_median": med("parse_share"),
-           "pack_and_enqueue_share_median": med("pack_and_enqueue_share"),
-           "synthesis_share_median": med("synthesis_share"),
-           "passes": passes, "profiled_pass": profiled}
+           # 0 h2d records: the profiler recorded nothing on the card
+           "profiled_h2d_records": len(h2d), "pageable_h2d_records": pageable}
     emit(out)
     return out
 
@@ -3261,232 +3100,6 @@ def phase_examples() -> dict:
     return out
 
 
-BENCH_SUSTAIN_S = 5.0   # the bench phase's sustained segment
-
-
-def phase_bench() -> dict:
-    """The port's bench (`mpeg_tpu_torch.bench`) in this process at
-    reduced settings (a 5 s sustained segment; the long-form leg only
-    where cv2 is importable, which builds its fixture), on the committed
-    1080p fixture that every phase decodes (the recipe's output with
-    cv2 5.0.0; another cv2 writes other bytes).  Its first headline
-    pass, from fresh streams and a fresh carry, keeps its displays:
-    every one (but each stream's first, the first reference picture,
-    which the reference delay holds back) must equal the C++ host
-    decoder's frame over the looping fixture (reset at each loop's end,
-    as the bench's streams are), every copy must come from pinned
-    memory, and K5 must launch three times a round and K1 at most once
-    a step; the launch counts are set to 0 just before that pass and
-    read just after.  Then
-    the bench's timed passes, sustained segment, stage budget,
-    microbenches and secondary legs (a leg that raised fails the run),
-    the headline's passes with `min(4, os.cpu_count())` parse threads,
-    and the mesh mode on the card listed twice."""
-    import torch
-
-    from mpeg_tpu_torch import bench
-    from mpeg_tpu_torch.ops import cuda_kernels
-
-    t0 = time.perf_counter()
-    settings = bench.Settings(sustain=BENCH_SUSTAIN_S)
-    b = bench.Bench("cuda", settings, bench.COMMITTED_FIXTURE)
-    b.prepare()
-    counts = _transport_counts()
-    cuda_kernels.reset_launches()
-    kept = b.first_pass(keep=True)
-    torch.cuda.synchronize()
-    launches = {"reconstruct_picture":
-                cuda_kernels.reconstruct_picture.launches,
-                "densify_unpack": cuda_kernels.densify_unpack.launches}
-    transport = check_transport(counts, "bench headline")
-    rounds, window = len(kept), settings.window
-    if not 0 < launches["reconstruct_picture"] <= window * rounds:
-        fail(f"bench headline: K1 launched "
-             f"{launches['reconstruct_picture']} times in {rounds} rounds "
-             f"of {window} steps")
-    if launches["densify_unpack"] != cuda_kernels.DENSIFY_LAUNCHES * rounds:
-        fail(f"bench headline: K5 launched {launches['densify_unpack']} "
-             f"times in {rounds} rounds")
-    steps = window * rounds
-    want = _looping_native_frames(b.data, -(-steps // b.pics))
-    fs = b.geom.frame_size
-    if len(want) < steps - 1:
-        fail(f"bench headline: the host decoder gave {len(want)} frames "
-             f"for {steps} steps")
-    for s in range(bench.STREAMS):
-        got = [d[s, t] for d in kept for t in range(window)][1:]
-        _check_against_host(got, want[:len(got)], fs,
-                            f"bench headline, stream {s}")
-    check = {"rounds": rounds, "streams": bench.STREAMS, "window": window,
-             "displays_checked": bench.STREAMS * (steps - 1),
-             "loops_of_the_fixture": steps / b.pics,
-             "equal_to_native_host_decoder": True, "launches": launches,
-             "transport": transport}
-    del kept
-
-    line = b.headline()
-    legs = b.secondaries()
-    b.ring.close()
-    if b.failed:
-        fail(f"bench: legs failed: {b.failed}: "
-             f"{ {k: legs[k] for k in b.failed} }")
-    threads = min(4, os.cpu_count())
-    bn = bench.Bench("cuda", bench.Settings(parse_threads=threads,
-                                            sustain=0, stream64=False,
-                                            longform=False),
-                     bench.COMMITTED_FIXTURE)
-    bn.prepare()
-    bn.first_pass()
-    fps_n, e2e_n, busy_n = bn.passes()
-    bn.ring.close()
-    mesh = bench.mesh_bench(2, "cuda", bench.Settings(),
-                            bench.COMMITTED_FIXTURE)
-    out = {"phase": "bench", **line, "legs": legs, "headline_check": check,
-           "parse_threads_n": {"parse_threads": threads, "value": fps_n,
-                               "passes_fps": e2e_n, "busy": busy_n},
-           "mesh": mesh, "seconds": time.perf_counter() - t0}
-    emit(out)
-    return out
-
-
-def _rates(tree: str) -> dict:
-    """The smoke run's end-to-end rates of the package in `tree` (this
-    process imports it from there), each over fresh decoders, the median
-    of 3 after a warm-up: the 1080p single stream and the 64 streams
-    (prefetch off and on), the sharded 8 streams on the card and on it
-    twice (the parse done first), the dense transport on the 1080p
-    fixture cut to 9 pictures (the Python parse included), the 1080p A/V
-    decode's video frames, `Audio.decode` and `BatchAudioDecoder` frames;
-    with the peak device memory of the timed passes, and one profiled
-    pass of the 64-stream, the sharded and the dense decodes."""
-    import io
-
-    import torch
-
-    import mpeg_tpu_torch
-    from mpeg_tpu_torch import MPEG, Audio, Buffer
-    from mpeg_tpu_torch.parallel import (BatchAudioDecoder,
-                                         BatchVideoDecoder,
-                                         MultiStreamVideoDecoder)
-    from mpeg_tpu_torch.parallel import sharding as sh
-
-    where = os.path.dirname(os.path.dirname(os.path.abspath(
-        mpeg_tpu_torch.__file__)))
-    if os.path.realpath(where) != os.path.realpath(tree):
-        fail(f"--rates-of {tree}: imported the package from {where}")
-    data = _fixture_1080p()
-    cuts = _stream_cuts(data)
-    streams = [cuts[s % len(cuts)] for s in range(N_STREAMS)]
-    mp2 = open(os.path.join(TESTDATA, "test.mp2"), "rb").read()
-    ps = _ps_1080p()
-
-    def measured(run, frames_of, profile=False):
-        walls, peaks, frames = [], [], []
-        for i in range(1 + E2E_PASSES):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            got = run()
-            torch.cuda.synchronize()
-            if i:                          # the first pass: not timed
-                walls.append(time.perf_counter() - t0)
-                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-                frames.append(frames_of(got))
-            del got
-        wall = statistics.median(walls)
-        out = {"frames": frames[0], "walls_s": walls,
-               "fps_median": frames[0] / wall, "peak_device_gib": max(peaks)}
-        if profile:
-            out["profiled_pass"] = profiled_pass(run, wall, K5_KERNELS)
-        return out
-
-    def decode_audio():
-        buf = Buffer(io.BytesIO(mp2))
-        buf.set_load_callback(buf.load_reader_callback)
-        audio, n = Audio(buf, device="cuda"), 0
-        while audio.decode() is not None:
-            n += 1
-        return n
-
-    def decode_av():
-        count = [0]
-        _clock_decode(MPEG(ps, device="cuda"),
-                      lambda _m, f: count.__setitem__(0, count[0] + 1),
-                      lambda _m, smp: None)
-        return count[0]
-
-    count_streams = lambda got: sum(len(f) for f in got)  # noqa: E731
-    out = {"tree": tree}
-    for prefetch in (False, True):
-        key = "_prefetch" if prefetch else ""
-        out["single_1080p" + key] = measured(
-            lambda: BatchVideoDecoder(data, window=16, device="cuda",
-                                      prefetch=prefetch).decode_all(), len)
-        out["streams_64" + key] = measured(
-            lambda: MultiStreamVideoDecoder(
-                streams, window=2, device="cuda",
-                prefetch=prefetch).decode_all(), count_streams,
-            profile=not prefetch)
-    parsed = [_native_windows(c, 16) for c in cuts]
-    geom = parsed[0][0]
-    blobs, types, km, ke = _common_blobs(
-        [parsed[s % len(cuts)][1] for s in range(SHARDED_STREAMS)], geom, 16)
-    for name, devices in (("sharded_8", None),
-                          ("sharded_8_card_twice", ["cuda:0", "cuda:0"])):
-        mesh = sh.make_mesh(devices)
-        out[name] = measured(
-            lambda: _sharded_decode(sh, geom, mesh, blobs, types, 16, km,
-                                    ke),
-            lambda got: count_streams(got[0]), profile=devices is None)
-    dense_cut = cuts[STREAM_CUTS.index(9)]
-    out["dense_1080p_cut"] = measured(
-        lambda: BatchVideoDecoder(dense_cut, window=16, transport="dense",
-                                  use_native=False,
-                                  device="cuda").decode_all(), len,
-        profile=True)
-    out["interactive_1080p"] = measured(decode_av, lambda n: n)
-    out["audio"] = measured(decode_audio, lambda n: n)
-    out["batch_audio"] = measured(
-        lambda: BatchAudioDecoder(mp2, window=32, device="cuda").decode_all(),
-        lambda pcm: len(pcm) // 2304)      # 1,152 samples x 2 a frame
-    return out
-
-
-def phase_turns(parent: str) -> dict:
-    """The end-to-end rates of the tree in `parent` and of this one in
-    turns, in both orders (parent, this, this, parent, then this, parent,
-    parent, this): rates follow a turn's place in its round.  Each turn is
-    its own process (`--rates-of`), all on this card."""
-    import subprocess
-
-    turns = []
-    for who in ("parent", "this", "this", "parent",
-                "this", "parent", "parent", "this"):
-        tree = os.path.abspath(parent) if who == "parent" else REPO
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--rates-of", tree],
-            capture_output=True, text=True, cwd=REPO, timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            fail(f"turn of {who} ({tree}): rc {proc.returncode}, "
-                 f"{proc.stderr[-1500:]}")
-        turns.append({"who": who, **json.loads(lines[-1])})
-    rates = [k for k, v in turns[0].items()
-             if isinstance(v, dict) and "fps_median" in v]
-    medians = {who: {k: statistics.median(t[k]["fps_median"] for t in turns
-                                          if t["who"] == who)
-                     for k in rates} for who in ("parent", "this")}
-    # Each profiled decode's h2d card time, turn by turn.
-    h2d_us = {k: {who: [t[k]["profiled_pass"].get("h2d_device_us")
-                        for t in turns if t["who"] == who]
-                  for who in ("parent", "this")}
-              for k in rates if "profiled_pass" in turns[0][k]}
-    out = {"phase": "turns", "parent_tree": parent, "medians": medians,
-           "h2d_device_us": h2d_us, "turns": turns}
-    emit(out)
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3496,10 +3109,6 @@ def main() -> int:
                     help="also time K1 and K3 built from this copy of "
                          "recon.cu in turns with this K1 and K3 (may be "
                          "repeated)")
-    ap.add_argument("--parent-tree", metavar="DIR",
-                    help="also time the end-to-end rates of the checkout "
-                         "in DIR and of this one in turns")
-    ap.add_argument("--rates-of", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--synth-baseline", metavar="SYNTH_CU", action="append",
                     default=[],
                     help="also build K4 from this copy of synth.cu, hold "
@@ -3519,10 +3128,6 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "mpeg_tpu_torch")):
         fail(f"no mpeg_tpu_torch package beside {__file__}: run from a "
              "checkout of the repository")
-    if args.rates_of:                     # one turn of phase_turns
-        sys.path.insert(0, os.path.abspath(args.rates_of))
-        emit(_rates(os.path.abspath(args.rates_of)))
-        return 0
     sys.path.insert(0, REPO)
 
     from mpeg_tpu_torch.device import gpu_name_and_power_limit
@@ -3548,21 +3153,17 @@ def main() -> int:
         sharded = phase_sharded_1080p()
         phase_transport()
         phase_streams()
-    if args.parent_tree:
-        phase_turns(args.parent_tree)
     phase_multihost()
     phase_examples()
-    with no_plain_densify():
-        bench = phase_bench()
-    # The four decodes' idle share, or that the profiler recorded nothing.
+    # The profiled decodes' idle share, or that the profiler recorded
+    # nothing (the benchmark's cells trace the paths they run).
     emit({"idle_share": {
         name: (out["profiled_pass"]["device_idle_share_unprofiled_wall"]
                if out["profiled_pass"]["device_recorded"] else
                "not measured: torch.profiler recorded no device activity")
-        for name, out in (("e2e_1080p", e2e), ("recon_multi_1080p", multi),
-                          ("multistream_1080p", streams),
+        for name, out in (("recon_multi_1080p", multi),
                           ("sharded_1080p", sharded["meshes"]["card"]))}})
-    # The transport of the five paths: its own count of the checked pass,
+    # The transport of the six paths: its own count of the checked pass,
     # and where profiled, the h2d copies' card time, rate and overlap.
     prof_keys = ("h2d_device_us", "h2d_records", "h2d_pinned_us",
                  "h2d_gb_per_s", "h2d_under_kernels_share",
@@ -3613,9 +3214,7 @@ def main() -> int:
             fixture_plain_ms=fixture["k1_plain_ms"],
             fixture_bound_ms=fixture["bound_ms"],
             interactive_launches=interactive["k1_launches"],
-            sharded_launches=sharded["meshes"]["card"]["k1_launches"],
-            bench_launches=bench["headline_check"]["launches"]
-            ["reconstruct_picture"]),
+            sharded_launches=sharded["meshes"]["card"]["k1_launches"]),
         row("idct_batch", multi["launches"]["idct_batch"],
             parity["k2_max_abs_err"], parity["k2_ms"],
             parity["k2_plain_ms"], parity["k2_bound_ms"],
@@ -3700,8 +3299,6 @@ def main() -> int:
             single_launches=e2e["launches"]["densify_unpack"],
             interactive_launches=interactive["k5_launches"],
             sharded_launches=sharded["meshes"]["card"]["k5_launches"],
-            bench_launches=bench["headline_check"]["launches"]
-            ["densify_unpack"],
             shapes=k5["shapes"],
             library_note="none: index_add_ is only the scatter, the last "
             "step; no PyTorch call does the prefix sum, the premultiply, "

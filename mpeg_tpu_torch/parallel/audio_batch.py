@@ -31,6 +31,7 @@ import torch
 from ..device import resolve_device
 from ..ops import cuda_kernels
 from ..utils import profiling
+from ._runahead import RunAhead
 from .batch import HostRing
 
 _FRAME_BYTES = 36 * 2 * 32 * 4   # a frame's int32 subband samples
@@ -104,89 +105,25 @@ class BatchAudioDecoder:
         self._pending: list = []
         self.stats = stats
 
-        # Prefetch: a producer thread parses the next window while the
-        # consumer synthesizes the current one (ctypes parse releases
-        # the GIL; weakref producer so an abandoned decoder is
-        # collectable, in-band exception delivery so already-parsed
-        # windows drain first, poisoning after close() or a producer
-        # error).
-        self._prefetch_q = None
-        self._prefetch_done = False
+        # The run-ahead parse (None: inline; dropped at end of stream).
+        self._runahead = None
         self._closed = False
         if prefetch:
             if streaming:
                 raise ValueError("prefetch requires a complete source "
                                  "(streaming=False)")
-            import queue as queue_mod
-            import threading
-            import weakref
-            self._prefetch_q = q = queue_mod.Queue(maxsize=2)
-            self._prefetch_stop = stop = []   # shared cell; close() appends
-            # The producer must not keep the decoder alive: it holds a
-            # weakref and exits when the decoder is collected.
-            wr = weakref.ref(self)
-
-            def producer():
-                while True:
-                    dec = wr()
-                    if dec is None or stop:
-                        return
-                    try:
-                        t0 = time.perf_counter()
-                        frames = dec._parse_frames(dec.window)
-                        if dec.stats is not None:
-                            dec.stats.host_seconds += \
-                                time.perf_counter() - t0
-                    except BaseException as e:   # noqa: BLE001
-                        # In-band (good windows drain first), with the
-                        # same timeout-and-recheck loop as the normal
-                        # puts: a full queue on an abandoned decoder
-                        # must not pin this thread forever.
-                        del dec
-                        while not (stop or wr() is None):
-                            try:
-                                q.put(e, timeout=0.5)
-                                break
-                            except queue_mod.Full:
-                                pass
-                        return
-                    eos = len(frames) < dec.window
-                    del dec   # no strong decoder ref during the puts
-                    for item in ([frames] if frames else []) + \
-                            ([None] if eos else []):
-                        while True:
-                            if stop or wr() is None:
-                                return
-                            try:
-                                q.put(item, timeout=0.5)
-                                break
-                            except queue_mod.Full:
-                                pass
-                    if eos:
-                        return
-
-            self._prefetch_t = threading.Thread(target=producer,
-                                                daemon=True)
-            self._prefetch_t.start()
+            self._runahead = RunAhead(
+                self, lambda dec: dec._parse_window(),
+                lambda frames, n=window: len(frames) < n, 2)
 
     def close(self) -> None:
-        """Stop the prefetch producer and poison further decode (any
-        prefetched-but-unconsumed windows are discarded, so resuming
-        would skip frames — decode_window returns None from now on)."""
+        """Stop the run-ahead parse and poison further decode (windows
+        parsed ahead are discarded, so resuming would skip frames —
+        decode_window returns None from now on)."""
         self._closed = True
-        if self._prefetch_q is not None:
-            self._prefetch_stop.append(True)
-            import queue as queue_mod
-            while self._prefetch_t.is_alive():   # unblock stuck put()s
-                try:
-                    self._prefetch_q.get_nowait()
-                except queue_mod.Empty:
-                    time.sleep(0.01)
-            while True:   # drop remaining windows + end sentinel
-                try:
-                    self._prefetch_q.get_nowait()
-                except queue_mod.Empty:
-                    break
+        if self._runahead is not None:
+            self._runahead.close()
+            self._runahead = None
 
     def _make_native(self, data: bytes):
         if self._streaming:
@@ -281,6 +218,15 @@ class BatchAudioDecoder:
                 frames.append(f)
         return frames
 
+    def _parse_window(self) -> list:
+        """A window's frames, parsed ahead; its time goes to
+        `stats.host_seconds`."""
+        t0 = time.perf_counter()
+        frames = self._parse_frames(self.window)
+        if self.stats is not None:
+            self.stats.host_seconds += time.perf_counter() - t0
+        return frames
+
     def decode_window(self):
         """Decode up to `window` frames; returns interleaved samples
         [n_frames * 2304] (float32, or int16 with out_format="s16"; a
@@ -294,18 +240,19 @@ class BatchAudioDecoder:
     def _decode_window(self):
         if self._closed:
             return None
-        if self._prefetch_q is not None:
-            if self._prefetch_done:
-                return None
+        if self._runahead is not None:
             with profiling.span("mpeg.parse.wait", self._key):
-                frames = self._prefetch_q.get()
-            if isinstance(frames, BaseException):
-                # Producer failed: poison like close() — windows the
-                # producer parsed past the failure are lost.
-                self._closed = True
-                raise frames
-            if frames is None:
-                self._prefetch_done = True
+                try:
+                    frames = self._runahead.get()
+                except BaseException:
+                    # Windows parsed past the error are lost: poison like
+                    # close().
+                    self._closed = True
+                    self._runahead = None
+                    raise
+            if self._runahead.done:
+                self._runahead = None   # later calls parse inline: no frames
+            if not frames:
                 return None
         else:
             t_parse = time.perf_counter()

@@ -57,6 +57,7 @@ from ..tables import (
 )
 from ..utils import profiling
 from ..video import Video
+from ._runahead import RunAhead
 
 _PREMULT = np.asarray(PREMULTIPLIER_MATRIX, np.int32)
 
@@ -1109,9 +1110,10 @@ class BatchVideoDecoder:
         if prefetch and streaming:
             raise ValueError("prefetch=True requires streaming=False "
                              "(feed() drives the parse in streaming mode)")
-        self._prefetch = prefetch
-        self._pf_queue = None
-        self._pf_thread = None
+        # The run-ahead parse (None: inline; dropped at end of stream).
+        self._runahead = RunAhead(
+            self, lambda dec: dec._parse_stage(), lambda item: not item[2],
+            2) if prefetch else None
         self._closed = False
         self._cached_geom = None
         # Window-blob recycling: each window's host blob (a pinned
@@ -1584,98 +1586,33 @@ class BatchVideoDecoder:
         return blob, plans, types, caps, time.perf_counter() - t0, fill
 
     def _next_parsed(self):
-        """The next parsed window — from the prefetch queue (started
-        lazily; depth 2) or parsed inline."""
-        if not self._prefetch:
-            with profiling.span("mpeg.parse.wait", self._key):
-                return self._parse_stage()
-        import queue
-        import threading
-        import weakref
-        if self._pf_thread is None:
-            self._pf_queue = q = queue.Queue(maxsize=2)
-            self._pf_stop = stop = []   # shared cell; close() appends
-
-            # The producer must not keep the decoder alive: it holds a
-            # weakref and exits when the decoder is collected, so an
-            # abandoned prefetch decoder (no close()) costs at most one
-            # 0.5 s poll cycle after GC instead of a permanent leak.
-            wr = weakref.ref(self)
-
-            def producer():
-                while True:
-                    dec = wr()
-                    if dec is None or stop:
-                        return
-                    try:
-                        item = dec._parse_stage()
-                    except BaseException as e:   # noqa: BLE001
-                        # Same timeout-and-recheck loop as the normal
-                        # puts: a full queue on an abandoned decoder
-                        # must not pin this thread (and its windows)
-                        # forever.
-                        del dec
-                        while not (stop or wr() is None):
-                            try:
-                                q.put(e, timeout=0.5)
-                                break
-                            except queue.Full:
-                                pass
-                        return
-                    eos = not item[2]
-                    del dec   # no strong decoder ref during the put
-                    while True:
-                        if stop or wr() is None:
-                            return
-                        try:
-                            q.put(item, timeout=0.5)
-                            break
-                        except queue.Full:
-                            pass
-                    if eos:   # no types: parse exhausted
-                        return
-
-            self._pf_thread = threading.Thread(target=producer,
-                                               daemon=True)
-            self._pf_thread.start()
+        """The next parsed window: from the run-ahead parse, or parsed
+        inline."""
         with profiling.span("mpeg.parse.wait", self._key):
-            item = self._pf_queue.get()
-        if isinstance(item, BaseException):
-            # The producer is gone and may have parsed ahead of the
-            # failed window: the windows it held are lost, so poison
-            # further decode exactly like close() (resuming inline would
-            # silently skip pictures against a stale carry).
-            self._pf_thread = None
-            self._poison()
-            raise item
-        if not item[2] and self._pf_thread is not None:
-            self._pf_thread.join()
-            self._pf_thread = None
-            # EOS consumed: parse inline from here on (the flush path
-            # and any post-EOS polling must not respawn threads).
-            self._prefetch = False
+            if self._runahead is None:
+                return self._parse_stage()
+            try:
+                item = self._runahead.get()
+            except BaseException:
+                # The windows parsed ahead of the error are lost: resuming
+                # inline would skip pictures against a stale carry.
+                self._poison()
+                raise
+        if self._runahead.done:
+            # End of stream: the flush and any later polling parse inline.
+            self._runahead = None
         return item
 
     def close(self) -> None:
-        """Abandon the decoder: stop the prefetch thread and end the
-        stream.  The producer may have parsed up to 3 windows ahead, so
+        """Abandon the decoder: stop the run-ahead parse and end the
+        stream.  The run-ahead parse may be up to 3 windows ahead, so
         decode cannot transparently continue past a close() — further
         decode_window() calls return [] instead of silently skipping
         the discarded windows.  A decoder read to end of stream shuts
         its thread down by itself; close() is for early exits."""
-        if self._pf_thread is not None:
-            self._pf_stop.append(True)
-            import queue
-            while self._pf_thread.is_alive():
-                try:
-                    self._pf_queue.get_nowait()
-                except queue.Empty:
-                    pass
-                self._pf_thread.join(timeout=0.1)
-            self._pf_thread = None
-        if self._prefetch:
+        if self._runahead is not None:
+            self._runahead.close()
             self._poison()
-        self._prefetch = False
         self._blob_inflight.clear()   # dropped, as in _poison
 
     def _poison(self) -> None:
@@ -1692,7 +1629,7 @@ class BatchVideoDecoder:
         self.native = None
         self.video = None
         self._closed = True
-        self._prefetch = False
+        self._runahead = None
         # Dropped, not waited on: torch's host allocator keeps a pinned
         # blob's memory until the copy that reads it has completed.
         self._blob_inflight.clear()

@@ -48,6 +48,7 @@ from ..ops.color import flat_frame_to_rgba
 from ..ops.video_recon import FrameGeometry
 from ..tables import PICTURE_TYPE_B, PREMULTIPLIER_MATRIX
 from ..utils import profiling
+from ._runahead import RunAhead
 from .batch import (
     _HOP, _MIN_KE, _MIN_KM, _NB_CLASS_REP, _PLAN_FIELDS, HostRing,
     blob_split, densify_unpack, device_put, host_blob, pool_bucket,
@@ -527,13 +528,12 @@ class MultiStreamVideoDecoder:
         self._has_ref = [False] * self.n
         self._last_type = [0] * self.n
         self._flushed = [False] * self.n
-        # prefetch: parse the next global window on a background thread
-        # while the device consumes the current one (the double-buffered
-        # slots let the producer run exactly one window ahead).
-        self._prefetch = prefetch
-        self._pf_queue = None
-        self._pf_thread = None
-        self._pf_stop = None
+        # prefetch: parse the next global window on a thread of its own
+        # while the device consumes the current one (the two slots let it
+        # run exactly one window ahead; None: inline).
+        self._runahead = RunAhead(
+            self, lambda dec: dec._fill(), lambda item: not item[1].any(),
+            1) if prefetch else None
         self._closed = False
         # The fill's workers, the filling thread included: the physical
         # cores this process may run on, at most one a stream (set at the
@@ -765,77 +765,29 @@ class MultiStreamVideoDecoder:
                 self._carry = initial_carry(self.geom, self.n, self.device)
 
     def _next_filled(self):
-        """The next parsed global window — prefetched or inline."""
-        if not self._prefetch:
-            with profiling.span("mpeg.parse.wait", self._key):
-                return self._fill()
-        import queue
-        import weakref
-        if self._pf_thread is None:
-            self._pf_queue = q = queue.Queue(maxsize=1)
-            self._pf_stop = stop = []
-            wr = weakref.ref(self)
-
-            def producer():
-                while True:
-                    dec = wr()
-                    if dec is None or stop:
-                        return
-                    try:
-                        item = dec._fill()
-                    except BaseException as e:   # noqa: BLE001
-                        del dec
-                        while not (stop or wr() is None):
-                            try:
-                                q.put(e, timeout=0.5)
-                                break
-                            except queue.Full:
-                                pass
-                        return
-                    done = not item[1].any()
-                    del dec
-                    while True:
-                        if stop or wr() is None:
-                            return
-                        try:
-                            q.put(item, timeout=0.5)
-                            break
-                        except queue.Full:
-                            pass
-                    if done:   # every stream dry: stop after the flush
-                        return
-
-            self._pf_thread = threading.Thread(target=producer,
-                                               daemon=True)
-            self._pf_thread.start()
+        """The next parsed global window: from the run-ahead parse, or
+        parsed inline."""
         with profiling.span("mpeg.parse.wait", self._key):
-            item = self._pf_queue.get()
-        if isinstance(item, BaseException):
-            self._pf_thread = None
-            self._closed = True
-            raise item
-        if not item[1].any() and self._pf_thread is not None:
-            self._pf_thread.join()
-            self._pf_thread = None
-            self._prefetch = False   # flush/polling continues inline
+            if self._runahead is None:
+                return self._fill()
+            try:
+                item = self._runahead.get()
+            except BaseException:
+                self._closed = True   # the window parsed ahead is lost
+                self._runahead = None
+                raise
+        if self._runahead.done:
+            self._runahead = None   # every stream dry: inline from here on
         return item
 
     def close(self) -> None:
-        """Stop the prefetch thread (early exits); further
-        decode_window() calls return None (the producer may have parsed
-        one window ahead — resuming would skip frames)."""
+        """Stop the run-ahead parse (early exits); further
+        decode_window() calls return None (it may have parsed one window
+        ahead — resuming would skip frames)."""
         self._closed = True   # also unsticks evt.wait loops
-        if self._pf_thread is not None:
-            self._pf_stop.append(True)
-            import queue
-            while self._pf_thread.is_alive():
-                try:
-                    self._pf_queue.get_nowait()
-                except queue.Empty:
-                    pass
-                self._pf_thread.join(timeout=0.1)
-            self._pf_thread = None
-        self._prefetch = False
+        if self._runahead is not None:
+            self._runahead.close()
+            self._runahead = None
         if self._pool_close is not None:
             self._pool_close()   # the fill's threads, joined
 

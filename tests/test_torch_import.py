@@ -28,7 +28,6 @@ sys.meta_path.insert(0, _Block())
 import mpeg_tpu_torch
 import mpeg_tpu_torch._spec_tables
 import mpeg_tpu_torch.audio
-import mpeg_tpu_torch.bench
 import mpeg_tpu_torch.buffer
 import mpeg_tpu_torch.config
 import mpeg_tpu_torch.demux
@@ -41,6 +40,7 @@ import mpeg_tpu_torch.ops.cuda_kernels
 import mpeg_tpu_torch.ops.filterbank
 import mpeg_tpu_torch.ops.video_recon
 import mpeg_tpu_torch.parallel
+import mpeg_tpu_torch.parallel._runahead
 import mpeg_tpu_torch.parallel.audio_batch
 import mpeg_tpu_torch.parallel.multihost
 import mpeg_tpu_torch.parallel.multistream

@@ -340,10 +340,16 @@ def test_batch_audio_prefetch_parses_on_its_own_thread():
     with profiling.collect() as col:
         dec, windows = _batch_audio(prefetch=True)
     spans = _keyed(col, dec)
-    assert {main for name, _, main in spans if name == "mpeg.parse"} \
-        == {False}
+    # Every window is parsed on the parse thread; after the last one the
+    # decoder parses inline, on the main thread, and finds no frames.
+    mine = [s for s in col.spans if s[3] == dec._key]
+    last_launch = max(s[7] for s in mine if s[1] == "mpeg.launch")
+    parses = [s for s in mine if s[1] == "mpeg.parse"]
+    assert sum(not s[5] for s in parses) == len(windows)
+    assert all(s[6] > last_launch for s in parses if s[5])
     assert {(parent, main) for name, parent, main in spans
-            if name == "mpeg.parse"} == {(None, False)}
+            if name == "mpeg.parse"} == {(None, False),
+                                         ("mpeg.parse.wait", True)}
     assert {(parent, main) for name, parent, main in spans
             if name == "mpeg.parse.wait"} == {("mpeg.window", True)}
     assert col.counts["audio_frames"] == 72
